@@ -8,7 +8,10 @@ verifiers of the main path at B=32768 (the per-signature Straus verifier
 through ``verify_host`` and the RLC batch verifier through
 ``verify_batch_host``) on signatures made by the port's integer oracle,
 counts the kernel launches of those two runs, and times kernels, plain
-versions and verifiers. Each phase prints one JSON line; the last line is
+versions and verifiers. A kernel's time is device time per launch from a
+CUDA graph of wrapper calls replayed between CUDA events, printed beside
+the host's time per wrapper call and held against the profiler's per-launch
+time over one Straus verify. Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing a result.
 """
@@ -29,8 +32,11 @@ B = 32768
 N_DISTINCT = 128
 MSM_LEVEL0 = 48 * (B // 2)       # first up-sweep level of the MSM at c=8
 CHECK_WIDTHS = (0, 1, 511, 512, 513, 768)
+DOUBLE_RUNS = (1, 4, 8)  # k of ed_double: one step, a Straus run, a Horner window at c=8
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_CLK_PER_SM = 64
+GRAPH_LAUNCHES = 20      # wrapper calls captured in one CUDA graph
+GRAPH_REPLAYS = 10
 
 
 def emit(obj):
@@ -43,7 +49,10 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def events_ms(fn, reps: int) -> float:
+    """Host-issued calls between two CUDA events, ms per call. Right only
+    where the device work outlasts the host's issue of each call: the
+    plain versions (hundreds of small torch launches per call)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -56,13 +65,89 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = GRAPH_REPLAYS) -> float:
+    """Device ms per launch, without the host: `launches` calls of the
+    wrapper fn (same input, outputs allocated inside the capture) captured
+    in one CUDA graph, warmed up, then replayed between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del g
+    torch.cuda.synchronize()
+    return ms
+
+
+def host_us_per_call(fn, calls: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """Host clock per wrapper call, no synchronize between calls (checks,
+    allocation, ctypes call, launch); median of reps runs of `calls`."""
+    runs = []
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
 PORT_KERNELS = ("ed_add_kernel", "ed_double_kernel", "pow_kernel")
+SASS_OPS = ("IMAD.WIDE", "IMAD", "SHF", "IADD3", "LDL", "STL")
+
+
+def sass_counts(lib_path) -> dict:
+    """Static SASS opcode counts per port kernel from `cuobjdump -sass` of
+    the built library: IMAD.WIDE* apart from the other IMAD*, SHF*,
+    IADD3*, LDL*, STL*. "not available" where the toolkit lacks cuobjdump."""
+    from eccoxide_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"not available": f"no cuobjdump beside {build._nvcc()}"}
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : .*?(ed_add_kernel|ed_double_kernel|pow_kernel)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None:
+            op = m.group(1)
+            if op.startswith("IMAD.WIDE"):
+                cur["IMAD.WIDE"] += 1
+            else:
+                for name in SASS_OPS[1:]:
+                    if op == name or op.startswith(name + "."):
+                        cur[name] += 1
+    return counts
 
 
 def device_profile(fn) -> dict:
     """Device time by kernel over one call of fn (torch.profiler, after a
     warm-up call): the busy time is the sum of the kernels' device time,
-    the idle share its complement in the profiled wall time."""
+    the idle share its complement in the profiled wall time; per port
+    kernel, its device time per launch (self_device_time_total / count)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -78,10 +163,15 @@ def device_profile(fn) -> dict:
     busy = sum(r[1] for r in rows)
     port = sum(r[1] for r in rows if any(k in r[0] for k in PORT_KERNELS))
     top = sorted(rows, key=lambda r: -r[1])[:10]
+    per_kernel = {}
+    for name in PORT_KERNELS:
+        mine = [r for r in rows if name in r[0]]
+        n = sum(r[2] for r in mine)
+        per_kernel[name] = {"count": n, "ms_per_launch": sum(r[1] for r in mine) / n if n else None}
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if busy else None,
             "port_kernels_ms": port, "other_kernels_ms": busy - port,
-            "launches": sum(r[2] for r in rows),
+            "launches": sum(r[2] for r in rows), "port_kernels": per_kernel,
             "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, ms, n in top]}
 
 
@@ -140,7 +230,7 @@ def main() -> int:
           "build_s": build_s, "kernel_build_s": built["kernels"].seconds,
           "sha512_build_s": built["sha512"].seconds,
           "kernel_library": os.path.relpath(built["kernels"].path),
-          "ptxas": regs})
+          "ptxas": regs, "sass_static_opcodes": sass_counts(built["kernels"].path)})
 
     # -- phase 2: kernels against their plain versions ---------------------
     gen = torch.Generator(device=dev).manual_seed(2024)
@@ -181,7 +271,7 @@ def main() -> int:
         max_err[name] = max(max_err[name], err)
         checks[name].append({"width": width, "case": case, "canonical_equal": err == 0,
                              "limbs_equal": bool(torch.equal(got, want))})
-        if err:
+        if err or not checks[name][-1]["limbs_equal"]:
             raise RuntimeError(f"{name} at width {width} ({case}) differs from its plain version")
 
     e_sqrt, e_inv = (P - 5) // 8, P - 2
@@ -198,7 +288,10 @@ def main() -> int:
             p[:, :, 3] = max_fe(1)[:, 0]                        # largest TIGHT limbs
             q[:, :, 3] = p[:, :, 3]
         compare("ed_add", group.ed_add(p, q), group.ed_add_plain(p, q), W, "points")
-        compare("ed_double", group.ed_double(p), group.ed_double_plain(p), W, "points")
+        for k in (1,) if W == MSM_LEVEL0 else DOUBLE_RUNS:
+            for need_t in (True, False):
+                compare("ed_double", group.ed_double(p, need_t, k),
+                        group.ed_double_plain(p, need_t, k), W, f"k={k} need_t={need_t}")
         if W in CHECK_WIDTHS or W == B:
             x = rand_fe(W)
             if W >= 3:
@@ -256,6 +349,8 @@ def main() -> int:
     emit({"phase": "straus_verify_host", "B": B, "accepted": sum(straus),
           "rejected_lanes": {str(i): bad[i] for i in bad if not straus[i]},
           "vectors_s": vectors_s, "first_call_s": straus_s, "launches": straus_launches})
+    if straus_launches["ed_double"] != 64:
+        raise RuntimeError(f"Straus ran {straus_launches['ed_double']} doubling launches, not 64")
 
     before = group.launches()
     t0 = time.perf_counter()
@@ -277,6 +372,8 @@ def main() -> int:
     # no per-signature fallback
     if after_valid["pow_const_kernel"] - before["pow_const_kernel"] != 2:
         raise RuntimeError("the valid batch fell back to the per-signature verifier")
+    if after_valid["ed_double"] - before["ed_double"] != 33:
+        raise RuntimeError("the valid batch did not run 33 doubling launches")
     if [i for i in range(B) if not rlc_forged[i]] != [forged]:
         raise RuntimeError("verify_batch_host did not isolate exactly the forged lane")
     emit({"phase": "rlc_verify_batch_host", "B": B, "msm_c": 8,
@@ -287,51 +384,62 @@ def main() -> int:
     if min(counts.values()) <= 0:
         raise RuntimeError(f"a kernel of the main path never launched: {counts}")
 
-    # -- phase 6: times --------------------------------------------------------
+    # -- phase 6: kernel times -------------------------------------------------
     clock_hz = clock_max_mhz * 1e6
     int_peak = INT32_MAD_PER_CLK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_hz
     n_dig = len(group.exp_digits(e_sqrt))
-    shapes = {
-        # name: (width, limb multiply-adds per lane, bytes per lane)
-        "ed_add": (MSM_LEVEL0, 9 * 100, 3 * 160),
-        "ed_double": (B, 4 * 55 + 4 * 100, 3 * 40 + 160),     # T is not read
-        "pow_const_kernel": (B, 14 * 100 + (n_dig - 1) * (4 * 55 + 100), 2 * 40),
-    }
     sources = {
         "ed_add": "eccoxide_tpu/ops/pallas_group.py:92 (_add_call, via pallas_add :144)",
         "ed_double": "eccoxide_tpu/ops/pallas_group.py:119 (_double_call, via pallas_double :161)",
         "pow_const_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241)",
     }
-    kernels = []
-    for name, (W, ops, nbytes) in shapes.items():
-        if name == "pow_const_kernel":
-            x = rand_fe(W)
-            k_fn = lambda: group.pow_const_kernel(x, e_sqrt)
-            p_fn = lambda: group.pow_const_plain(x, e_sqrt)
-        elif name == "ed_add":
-            p, q = rand_points(W), rand_points(W)
-            k_fn = lambda: group.ed_add(p, q)
-            p_fn = lambda: group.ed_add_plain(p, q)
-        else:
-            p = rand_points(W)
-            k_fn = lambda: group.ed_double(p)
-            p_fn = lambda: group.ed_double_plain(p)
-        ms = cuda_ms(k_fn, 20)
-        plain_ms = cuda_ms(p_fn, 3)
+
+    def double_case(W, k, need_t):
+        p = rand_points(W)
+        # limb multiply-adds per lane: 4 squarings and 3 products a step, the
+        # T product once; bytes: X, Y, Z read, four coordinates written
+        return ("ed_double", {"W": W, "k": k, "need_t": need_t},
+                k * (4 * 55 + 3 * 100) + 100 * need_t, 3 * 40 + 160,
+                lambda: group.ed_double(p, need_t, k),
+                lambda: group.ed_double_plain(p, need_t, k))
+
+    def add_case(W):
+        p, q = rand_points(W), rand_points(W)
+        return ("ed_add", {"W": W}, 9 * 100, 3 * 160,
+                lambda: group.ed_add(p, q), lambda: group.ed_add_plain(p, q))
+
+    def pow_case(W):
+        x = rand_fe(W)
+        return ("pow_const_kernel", {"W": W, "e": "(p-5)/8"},
+                14 * 100 + (n_dig - 1) * (4 * 55 + 100), 2 * 40,
+                lambda: group.pow_const_kernel(x, e_sqrt),
+                lambda: group.pow_const_plain(x, e_sqrt))
+
+    # the first case of each kernel is its row in the kernels line; the
+    # Straus shapes (W = B) are held against the profile below
+    cases = [add_case(MSM_LEVEL0), add_case(B),
+             double_case(B, 4, True), double_case(B, 1, True),
+             double_case(1, 8, True), double_case(1, 1, True),
+             pow_case(B)]
+    timings = []
+    for name, shape, ops, nbytes, k_fn, p_fn in cases:
+        W = shape["W"]
         ops_ms = W * ops / int_peak * 1e3
         bytes_ms = W * nbytes / HBM_BYTES_PER_S * 1e3
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "eccoxide_tpu_torch/ops/csrc/group.cu",
-            "replaces": sources[name], "launches": counts[name],
-            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+        timings.append({
+            "name": name, "shape": shape, "ms": graph_ms(k_fn),
+            "host_us_per_call": host_us_per_call(k_fn),
+            "plain_ms": events_ms(p_fn, 3),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "shape": [4, 10, W] if name != "pow_const_kernel" else [10, W],
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-        })
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms})
         del k_fn, p_fn
         torch.cuda.synchronize()
+    emit({"phase": "kernel_times", "card": card,
+          "timer": f"ms: CUDA graph of {GRAPH_LAUNCHES} wrapper calls, {GRAPH_REPLAYS} "
+                   "replays between CUDA events; host_us_per_call: host clock, no "
+                   "synchronize between calls; plain_ms: CUDA events around host-issued calls",
+          "timings": timings})
 
     # verifies/s: host clock around whole calls ending in synchronize
     def host_rate(fn, reps=3):
@@ -366,9 +474,32 @@ def main() -> int:
           "int32_mad_peak_per_s": int_peak, "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # -- where the device time goes: one profiled call of each core ----------
-    emit({"phase": "profile", "card": card, "B": B,
-          "straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
-          "rlc_core": device_profile(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8))})
+    profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
+                "rlc_core": device_profile(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8))}
+    emit({"phase": "profile", "card": card, "B": B, **profiles})
+
+    # the kernels line: each kernel's first case, its graph-replay time held
+    # against the profiler's per-launch time over one Straus verify_core
+    # (every launch there is at W = B; the doublings are runs of k = 4)
+    kernel_of = {"ed_add": "ed_add_kernel", "ed_double": "ed_double_kernel",
+                 "pow_const_kernel": "pow_kernel"}
+    kernels = []
+    for name in sources:
+        mine = [t for t in timings if t["name"] == name]
+        main_row, straus_row = mine[0], next(t for t in mine if t["shape"]["W"] == B)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "eccoxide_tpu_torch/ops/csrc/group.cu",
+            "replaces": sources[name], "launches": counts[name],
+            "max_abs_err": max_err[name], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "shape": main_row["shape"], "host_us_per_call": main_row["host_us_per_call"],
+            "cross_check": {
+                "shape": straus_row["shape"], "graph_ms": straus_row["ms"],
+                "profiler_ms_per_launch":
+                    profiles["straus_core"]["port_kernels"][kernel_of[name]]["ms_per_launch"]},
+        })
 
     print(card_line)
     emit({"kernels": kernels})

@@ -17,9 +17,10 @@ class ExtPoint:
     """Extended coordinates (X:Y:Z:T), T = XY/Z, packed as ``xyzt``.
 
     ``has_t`` is False for a point made with ``need_t=False``: its T is not
-    the point's T (the plain version leaves zeros, the kernel computes it
-    anyway), and ``with_t()`` refuses it, so an addition can never consume
-    it. Doubling and equality read no T."""
+    the point's T (a doubling leaves zeros on the card and on the CPU; the
+    add kernel computes it anyway, its plain version leaves zeros), and
+    ``with_t()`` refuses it, so an addition can never consume it. Doubling
+    and equality read no T."""
 
     __slots__ = ("xyzt", "has_t")
 
@@ -74,8 +75,9 @@ class EdwardsCurve:
         one = self.field.one(qx.shape[1:], qx.device)
         return self.add(p, ExtPoint(torch.stack([qx, qy, one, qt])))
 
-    def double(self, p: ExtPoint, need_t: bool = True) -> ExtPoint:
-        return ExtPoint(group.ed_double(p.xyzt, need_t), need_t)
+    def double(self, p: ExtPoint, need_t: bool = True, k: int = 1) -> ExtPoint:
+        """[2^k]p in one kernel launch on the card; T as need_t says."""
+        return ExtPoint(group.ed_double(p.xyzt, need_t, k), need_t)
 
     def neg(self, p: ExtPoint) -> ExtPoint:
         f = self.field

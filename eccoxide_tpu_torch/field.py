@@ -16,10 +16,14 @@ Overflow argument for FQ (all limbs are kept non-negative, so ``>>`` and
   (the output of ``_carry``). It is computed below as the fixed point of
   the bounds that ``add``, ``sub`` and ``mul`` produce from inputs within
   ``TIGHT``: limb 1 may exceed its 25 bits by the carry out of limb 0 after
-  the 19-fold, every other limb is strict.
+  the 19-fold, and limb 5 by the second carry out of limb 4 (the carry
+  runs as two interleaved chains, ``CARRY_STEPS``); every other limb is
+  strict.
 - ``mul``/``square`` take limbs <= ``TIGHT``; a product column is a sum of
   10 products with factors 1, 2, 19 or 38 (2 for odd*odd limbs, 19 for the
-  wrap past 2^255), bounded by ``MUL_COL`` < 2^63.
+  wrap past 2^255), bounded by ``MUL_COL`` < 2^63. The kernels fold the
+  factors into 32-bit operands (``mul_terms``; ``sq_terms`` for the
+  55-product square), each below 2^32, giving the same columns.
 - ``add`` takes limbs <= ``TIGHT``, its sums stay below 2^31 (the kernels
   add in int32).
 - ``sub`` computes ``x + PAD - y`` with ``PAD`` the limbs of 2p; every PAD
@@ -77,23 +81,55 @@ def mul_col_bounds(xb, yb) -> list[int]:
     return cols
 
 
+def mul_terms() -> list[tuple]:
+    """The 100 products of fe25519.cuh ``mul`` as (column, i, factor of
+    a_i, j, factor of b_j): 2 on a_i for two odd limbs, 19 on b_j on the
+    wrap, so each product is one multiply of two premultiplied operands."""
+    return [((i + j) % 10, i, 2 if i % 2 and j % 2 else 1,
+             j, 19 if i + j >= 10 else 1)
+            for i in range(10) for j in range(10)]
+
+
+def sq_terms() -> list[tuple]:
+    """The 55 products a_i a_j (i <= j) of fe25519.cuh ``sq``: 2 on a_i
+    for a cross term, the odd-odd 2 and the wrap's 19 on a_j."""
+    return [((i + j) % 10, i, 2 if i != j else 1,
+             j, (2 if i % 2 and j % 2 else 1) * (19 if i + j >= 10 else 1))
+            for i in range(10) for j in range(i, 10)]
+
+
+def term_columns(terms, xs, ys) -> tuple[list[int], int]:
+    """(columns, largest operand) of a product list on limbs xs, ys."""
+    cols, top = [0] * 10, 0
+    for k, i, fi, j, fj in terms:
+        a, b = fi * xs[i], fj * ys[j]
+        cols[k] += a * b
+        top = max(top, a, b)
+    return cols, top
+
+
+# The carry schedule of ``_carry`` and of fe25519.cuh ``carry``: step i
+# moves the bits of limb i above its width into limb i + 1 (into limb 0
+# times 19 for i = 9, since 2^255 = 19 mod p). ref10's two interleaved
+# chains, 0->1 beside 4->5 and so on, then the wrap 9->0 and one more 0->1:
+# the two steps of each pair are independent, so the dependent path is 7
+# steps long instead of the 11 of the single ripple (0, 1, ..., 9, 0), for
+# one step more in all. On the H100 the kernels measured slower with it,
+# not faster: they are bound by issued instructions (PERF.md).
+CARRY_STEPS = (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0)
+
+
 def carry_bounds(h) -> list[int]:
     """Upper bounds after ``_carry`` for non-negative columns bounded by h.
     Mirrors ``_carry`` step by step and asserts no int64 overflow."""
     h = list(h)
     for v in h:
         assert 0 <= v < _I63
-    for i in range(9):
+    for i in CARRY_STEPS:
         c = h[i] >> WIDTHS[i]
         h[i] = min(h[i], MASKS[i])
-        h[i + 1] += c
-        assert h[i + 1] < _I63
-    c = h[9] >> 25
-    h[9] = min(h[9], MASKS[9])
-    h[0] += 19 * c
-    c = h[0] >> 26
-    h[0] = min(h[0], MASKS[0])
-    h[1] += c
+        h[(i + 1) % 10] += 19 * c if i == 9 else c
+        assert h[(i + 1) % 10] < _I63
     return h
 
 
@@ -125,24 +161,23 @@ assert max(2 * a for a in TIGHT) < _I31
 assert all(PAD[i] >= TIGHT[i] for i in range(10))
 assert max(a + b for a, b in zip(TIGHT, PAD)) < _I31
 assert sum(t << o for t, o in zip(TIGHT, OFFS)) < 2**256
+# the kernels' product lists give the plain version's columns (so each is
+# below MUL_COL < 2^63) from premultiplied operands below 2^32
+for _terms in (mul_terms(), sq_terms()):
+    _cols, _top = term_columns(_terms, TIGHT, TIGHT)
+    assert _cols == mul_col_bounds(TIGHT, TIGHT) and _top < 2**32
 
 SQRT_M1 = pow(2, (P - 1) // 4, P)
 
 
 def _carry(h: torch.Tensor) -> torch.Tensor:
     """int64 (10, *batch) non-negative columns -> int32 TIGHT limbs (same
-    value mod p). The ripple of ``fe_carry`` in fe25519.cuh."""
+    value mod p), by ``CARRY_STEPS`` as ``carry`` in fe25519.cuh."""
     h = list(h.unbind(0))
-    for i in range(9):
+    for i in CARRY_STEPS:
         c = h[i] >> WIDTHS[i]
         h[i] = h[i] & MASKS[i]
-        h[i + 1] = h[i + 1] + c
-    c = h[9] >> 25
-    h[9] = h[9] & MASKS[9]
-    h[0] = h[0] + 19 * c
-    c = h[0] >> 26
-    h[0] = h[0] & MASKS[0]
-    h[1] = h[1] + c
+        h[(i + 1) % 10] = h[(i + 1) % 10] + (19 * c if i == 9 else c)
     return torch.stack(h).to(torch.int32)
 
 

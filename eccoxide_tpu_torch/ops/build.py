@@ -43,7 +43,8 @@ class BuildError(RuntimeError):
 @dataclass
 class Built:
     path: Path
-    log: str          # compiler output (nvcc: the -Xptxas -v report)
+    log: str          # compiler output (nvcc: the -Xptxas -v report), kept
+                      # beside the library, so a reused build has it too
     seconds: float    # 0.0 when an earlier build was reused
 
 
@@ -91,12 +92,14 @@ class _Job:
         return self
 
     def finish(self) -> Built:
+        log_path = self.out.with_suffix(".log")
         if self.proc is None:
-            return Built(self.out, "", 0.0)
+            return Built(self.out, log_path.read_text() if log_path.exists() else "", 0.0)
         log, _ = self.proc.communicate()
         secs = time.perf_counter() - self.t0
         if self.proc.returncode != 0:
             raise BuildError(f"building {self.name} failed:\n{log}")
+        log_path.write_text(log)
         os.replace(self.tmp, self.out)
         return Built(self.out, log, secs)
 
@@ -125,7 +128,7 @@ _libs: dict = {}
 def _bind_kernels(lib):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.ed_add_launch.argtypes = [vp, vp, vp, i64, vp]
-    lib.ed_double_launch.argtypes = [vp, vp, i64, vp]
+    lib.ed_double_launch.argtypes = [vp, vp, i32, i32, i64, vp]
     lib.pow_launch.argtypes = [vp, vp, vp, i32, i64, vp]
     for fn in (lib.ed_add_launch, lib.ed_double_launch, lib.pow_launch):
         fn.restype = ctypes.c_int

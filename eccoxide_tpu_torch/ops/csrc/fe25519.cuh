@@ -39,30 +39,53 @@ __device__ __forceinline__ void set_one(fe& r) {
   for (int i = 1; i < 10; ++i) r.v[i] = 0;
 }
 
-// The ripple of field.py _carry: limbs 0..9 in order, the carry out of
-// limb 9 folded back times 19 (2^255 = 19 mod p), then one step 0 -> 1.
+// One carry step: the bits of limb i above its width move into limb i + 1,
+// into limb 0 times 19 for i = 9 (2^255 = 19 mod p).
+template <int i>
+__device__ __forceinline__ void carry_step(uint64_t h[10]) {
+  constexpr int w = (i & 1) ? 25 : 26;
+  const uint64_t c = h[i] >> w;
+  h[i] &= (1ull << w) - 1;
+  h[(i + 1) % 10] += (i == 9 ? 19u : 1u) * c;
+}
+
+// field.py _carry, step for step (CARRY_STEPS): ref10's two interleaved
+// chains 0->1..4->5 and 4->5..8->9, then 9->0 and 0->1. The two steps of
+// each pair are independent, so the dependent path is 7 steps, not the 11
+// of one ripple; it costs one step more, and the kernels measured slower
+// with it (PERF.md).
 __device__ __forceinline__ void carry(fe& r, uint64_t h[10]) {
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const int w = (i & 1) ? 25 : 26;
-    const uint64_t c = h[i] >> w;
-    h[i] &= (1ull << w) - 1;
-    h[i + 1] += c;
-  }
-  uint64_t c = h[9] >> 25;
-  h[9] &= (1ull << 25) - 1;
-  h[0] += 19 * c;
-  c = h[0] >> 26;
-  h[0] &= (1ull << 26) - 1;
-  h[1] += c;
+  carry_step<0>(h);
+  carry_step<4>(h);
+  carry_step<1>(h);
+  carry_step<5>(h);
+  carry_step<2>(h);
+  carry_step<6>(h);
+  carry_step<3>(h);
+  carry_step<7>(h);
+  carry_step<4>(h);
+  carry_step<8>(h);
+  carry_step<9>(h);
+  carry_step<0>(h);
 #pragma unroll
   for (int i = 0; i < 10; ++i) r.v[i] = static_cast<uint32_t>(h[i]);
 }
 
-// Schoolbook product: a_i b_j lands in column (i+j) mod 10, times 2 when
-// both limbs are 25-bit and times 19 on the wrap past 2^255. All indices
-// and factors are compile-time constants once the loops unroll.
+// Schoolbook product in ref10's form: a_i b_j lands in column (i+j) mod 10,
+// times 2 when both limbs are 25-bit and times 19 on the wrap past 2^255.
+// The factors are folded into 32-bit operands computed once per call
+// (2 a_i for odd i, 19 b_j), so every partial product is one 32x32->64
+// multiply-add into its column (IMAD.WIDE.U32 with a 64-bit addend).
+// field.py mul_terms is this list of products; it asserts at import that
+// every operand of TIGHT input is below 2^32 and that the columns equal
+// the plain version's.
 __device__ __forceinline__ void mul(fe& r, const fe& a, const fe& b) {
+  uint32_t a2[10], b19[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    a2[i] = 2 * a.v[i];
+    b19[i] = 19 * b.v[i];
+  }
   uint64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; ++k) h[k] = 0;
@@ -70,14 +93,40 @@ __device__ __forceinline__ void mul(fe& r, const fe& a, const fe& b) {
   for (int i = 0; i < 10; ++i) {
 #pragma unroll
     for (int j = 0; j < 10; ++j) {
-      const uint64_t f = (((i & 1) && (j & 1)) ? 2u : 1u) * ((i + j >= 10) ? 19u : 1u);
-      h[(i + j) % 10] += f * (static_cast<uint64_t>(a.v[i]) * b.v[j]);
+      const uint32_t x = ((i & 1) && (j & 1)) ? a2[i] : a.v[i];
+      const uint32_t y = (i + j >= 10) ? b19[j] : b.v[j];
+      h[(i + j) % 10] += static_cast<uint64_t>(x) * y;
     }
   }
   carry(r, h);
 }
 
-__device__ __forceinline__ void sq(fe& r, const fe& a) { mul(r, a, a); }
+// Square with the 55 products a_i a_j, i <= j: the cross terms doubled on
+// the a_i side, the odd-odd 2 and the wrap's 19 on the a_j side (operands
+// a, 2a, 19a, 38a). Same columns as mul(r, a, a) (field.py sq_terms).
+__device__ __forceinline__ void sq(fe& r, const fe& a) {
+  uint32_t a2[10], a19[10], a38[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    a2[i] = 2 * a.v[i];
+    a19[i] = 19 * a.v[i];
+    a38[i] = 38 * a.v[i];
+  }
+  uint64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+#pragma unroll
+    for (int j = i; j < 10; ++j) {
+      const bool odd = (i & 1) && (j & 1);
+      const uint32_t x = (i != j) ? a2[i] : a.v[i];
+      const uint32_t y = (i + j >= 10) ? (odd ? a38[j] : a19[j]) : (odd ? a2[j] : a.v[j]);
+      h[(i + j) % 10] += static_cast<uint64_t>(x) * y;
+    }
+  }
+  carry(r, h);
+}
 
 __device__ __forceinline__ void add(fe& r, const fe& a, const fe& b) {
   uint64_t h[10];

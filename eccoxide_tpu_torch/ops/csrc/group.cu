@@ -8,7 +8,10 @@
 // i of coordinate c at (c * 10 + i) * W + lane, so a warp reads 32
 // neighbouring words per limb. Coordinates live in registers. The grid is
 // ceil(W / 128) blocks with an `if (lane < W)` guard, so no width needs
-// padding; the wrapper never launches for W == 0.
+// padding; the wrapper never launches for W == 0. At W = 32768 that is 256
+// blocks, two on each of 124 SMs and one on the other 8: the busiest SM
+// holds 256 threads, the least any block size can give, since 32768 lanes
+// over 132 SMs need 249 each, rounded up to whole warps.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -80,49 +83,63 @@ __global__ void __launch_bounds__(kThreads)
   fe25519::store(o + 3 * s, t0, W, lane);
 }
 
-// Replaces ops/pallas_group.py _double_call (pallas_double): dbl-2008-hwcd
-// for a=-1, T included. Bound on the H100: bytes, by the roofline count
-// (4 squarings and 4 products against 320 bytes per lane); same
-// register-resident, read-once design as the add.
+// Replaces ops/pallas_group.py _double_call (pallas_double): [2^k]P by k
+// steps of dbl-2008-hwcd for a=-1 in one launch (k = 1 is pallas_double).
+// X, Y, Z are read once and X3, Y3, Z3 stay in registers between steps;
+// T = E*H is computed after the last step only when need_t, else T is
+// written as zeros (doubling reads no T, so the steps before the last
+// never need it). Bound on the H100: operations, by the roofline count
+// (per lane k * (4 squarings of 55 products + 3 products of 100), plus
+// 100 for T, against 280 bytes), so a run of doublings costs one round
+// trip to device memory and one launch instead of k.
 __global__ void __launch_bounds__(kThreads)
     ed_double_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ o,
-                     int64_t W) {
+                     int k, int need_t, int64_t W) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
   const int64_t s = 10 * W;
-  fe x, y, a, b, c, t0;
+  fe x, y, z, e, h;
   fe25519::load(x, p, W, lane);
   fe25519::load(y, p + s, W, lane);
-  fe25519::sq(a, x);                          // A = X^2
-  fe25519::sq(b, y);                          // B = Y^2
-  fe25519::load(t0, p + 2 * s, W, lane);
-  fe25519::sq(c, t0);
-  fe25519::add(c, c, c);                      // C = 2 Z^2
-  fe d, e, f, g, h;
-  fe25519::neg(d, a);                         // D = -A
-  fe25519::add(t0, x, y);
-  fe25519::sq(e, t0);
-  fe25519::sub(e, e, a);
-  fe25519::sub(e, e, b);                      // E = (X+Y)^2 - A - B
-  fe25519::add(g, d, b);                      // G = D + B
-  fe25519::sub(f, g, c);                      // F = G - C
-  fe25519::sub(h, d, b);                      // H = D - B
-  fe25519::mul(t0, e, f);
-  fe25519::store(o, t0, W, lane);
-  fe25519::mul(t0, g, h);
-  fe25519::store(o + s, t0, W, lane);
-  fe25519::mul(t0, f, g);
-  fe25519::store(o + 2 * s, t0, W, lane);
-  fe25519::mul(t0, e, h);
-  fe25519::store(o + 3 * s, t0, W, lane);
+  fe25519::load(z, p + 2 * s, W, lane);
+#pragma unroll 1
+  for (int step = 0; step < k; ++step) {
+    fe a, b, c, d, f, g;
+    fe25519::sq(a, x);                        // A = X^2
+    fe25519::sq(b, y);                        // B = Y^2
+    fe25519::sq(c, z);
+    fe25519::add(c, c, c);                    // C = 2 Z^2
+    fe25519::neg(d, a);                       // D = -A
+    fe25519::add(e, x, y);
+    fe25519::sq(e, e);
+    fe25519::sub(e, e, a);
+    fe25519::sub(e, e, b);                    // E = (X+Y)^2 - A - B
+    fe25519::add(g, d, b);                    // G = D + B
+    fe25519::sub(f, g, c);                    // F = G - C
+    fe25519::sub(h, d, b);                    // H = D - B
+    fe25519::mul(x, e, f);                    // X3 = E F
+    fe25519::mul(y, g, h);                    // Y3 = G H
+    fe25519::mul(z, f, g);                    // Z3 = F G
+  }
+  fe25519::store(o, x, W, lane);
+  fe25519::store(o + s, y, W, lane);
+  fe25519::store(o + 2 * s, z, W, lane);
+  if (need_t) {
+    fe25519::mul(x, e, h);                    // T3 = E H
+  } else {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) x.v[i] = 0;
+  }
+  fe25519::store(o + 3 * s, x, W, lane);
 }
 
 // Replaces ops/pallas_group.py _pow_call (pallas_pow): x^e for a public
 // exponent given as 4-bit digits, most significant first. Per digit: four
 // squarings and one multiply by table[digit]; the first digit loads the
-// table entry. Bound on the H100: operations (about 21k 64-bit
-// multiply-adds per lane for e = (p-5)/8 against 80 bytes), so nothing but
-// the input and output touches device memory in bulk.
+// table entry. Bound on the H100: operations (21,240 32x32->64
+// multiply-adds per lane for e = (p-5)/8: 248 squarings of 55 products and
+// 76 products of 100, against 80 bytes), so nothing but the input and
+// output touches device memory in bulk.
 //
 // The table x^0..x^15 (640 bytes per thread) sits in local memory: its
 // index changes at run time, so it cannot be registers, and in shared
@@ -166,9 +183,10 @@ int ed_add_launch(const int32_t* p, const int32_t* q, int32_t* o, int64_t W,
   return static_cast<int>(cudaGetLastError());
 }
 
-int ed_double_launch(const int32_t* p, int32_t* o, int64_t W, void* stream) {
+int ed_double_launch(const int32_t* p, int32_t* o, int k, int need_t, int64_t W,
+                     void* stream) {
   ed_double_kernel<<<blocks_for(W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, o, W);
+      p, o, k, need_t, W);
   return static_cast<int>(cudaGetLastError());
 }
 

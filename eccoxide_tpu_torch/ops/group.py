@@ -3,8 +3,12 @@ the JAX package's ``ops/pallas_group.py``.
 
 Three wrappers, each with its plain PyTorch version beside it:
 
-- ``ed_add(p, q)``: complete a=-1 addition (add-2008-hwcd-3), T included;
-- ``ed_double(p)``: dbl-2008-hwcd, T included;
+- ``ed_add(p, q)``: complete a=-1 addition (add-2008-hwcd-3); the kernel
+  always computes T;
+- ``ed_double(p, need_t, k)``: [2^k]p by k steps of dbl-2008-hwcd in one
+  launch, X, Y, Z kept in registers between steps; T (the E*H product of
+  the last step) only when ``need_t``, zeros otherwise, on the card and
+  in the plain version alike;
 - ``pow_const_kernel(x, e)``: x^e over FQ for a public constant e.
 
 Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
@@ -33,6 +37,11 @@ def _check_point(p: torch.Tensor):
     if p.dtype != torch.int32 or p.dim() < 3 or tuple(p.shape[:2]) != (4, 10):
         raise ValueError(f"expected an int32 (4, 10, *batch) point, got "
                          f"{p.dtype} {tuple(p.shape)}")
+
+
+def _check_k(k: int):
+    if not isinstance(k, int) or not 1 <= k < 1 << 16:
+        raise ValueError(f"a run of doublings needs 1 <= k < 65536, got {k!r}")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -78,21 +87,25 @@ def ed_add_plain(p, q, need_t: bool = True):
     return torch.stack([f.mul(e, fv), f.mul(g, h), f.mul(fv, g), t3])
 
 
-def ed_double_plain(p, need_t: bool = True):
-    """2p on packed points; need_t as in ed_add_plain."""
+def ed_double_plain(p, need_t: bool = True, k: int = 1):
+    """[2^k]p on packed points: k doubling steps, T (E*H of the last step)
+    only when need_t, zeros otherwise."""
+    _check_k(k)
     f = FQ
     x, y, z, _ = p.unbind(0)
-    a = f.square(x)
-    b = f.square(y)
-    zz = f.square(z)
-    c = f.add(zz, zz)
-    d = f.neg(a)
-    e = f.sub(f.sub(f.square(f.add(x, y)), a), b)
-    g = f.add(d, b)
-    fv = f.sub(g, c)
-    h = f.sub(d, b)
+    for _ in range(k):
+        a = f.square(x)
+        b = f.square(y)
+        zz = f.square(z)
+        c = f.add(zz, zz)
+        d = f.neg(a)
+        e = f.sub(f.sub(f.square(f.add(x, y)), a), b)
+        g = f.add(d, b)
+        fv = f.sub(g, c)
+        h = f.sub(d, b)
+        x, y, z = f.mul(e, fv), f.mul(g, h), f.mul(fv, g)
     t3 = f.mul(e, h) if need_t else torch.zeros_like(x)
-    return torch.stack([f.mul(e, fv), f.mul(g, h), f.mul(fv, g), t3])
+    return torch.stack([x, y, z, t3])
 
 
 def exp_digits(e: int) -> list[int]:
@@ -147,18 +160,20 @@ def ed_add(p: torch.Tensor, q: torch.Tensor,
 ed_add.launches = 0
 
 
-def ed_double(p: torch.Tensor, need_t: bool = True) -> torch.Tensor:
-    """2p for a packed (4, 10, *batch) int32 point; need_t as in ed_add."""
+def ed_double(p: torch.Tensor, need_t: bool = True, k: int = 1) -> torch.Tensor:
+    """[2^k]p for a packed (4, 10, *batch) int32 point, one launch for the
+    whole run; T only when need_t (zeros otherwise)."""
     _check_point(p)
+    _check_k(k)
     if not _on_cuda(p):
-        return ed_double_plain(p, need_t)
+        return ed_double_plain(p, need_t, k)
     w = p[0, 0].numel()
     if w == 0:
         return p
     p = p.contiguous()
     out = torch.empty_like(p)
     rc = build.kernels().ed_double_launch(
-        p.data_ptr(), out.data_ptr(), w, _stream(p.device))
+        p.data_ptr(), out.data_ptr(), k, int(need_t), w, _stream(p.device))
     _raise_on(rc, "ed_double")
     ed_double.launches += 1
     return out

@@ -39,12 +39,11 @@ def _rev_bits(x, nb: int):
 
 
 def _horner_fold(group, ws: ExtPoint, n_windows: int, c: int) -> ExtPoint:
-    """acc = [2^c] acc + S_w from the top window down; ws has batch
-    (n_windows,), the result batch (1,)."""
+    """acc = [2^c] acc + S_w from the top window down (one doubling launch
+    per window); ws has batch (n_windows,), the result batch (1,)."""
     acc = group.identity((1,), ws.xyzt.device)
     for w in range(n_windows - 1, -1, -1):
-        for _ in range(c):
-            acc = group.double(acc)
+        acc = group.double(acc, k=c)
         acc = group.add(acc, ExtPoint(ws.xyzt[..., w:w + 1]))
     return acc
 
@@ -84,8 +83,8 @@ def msm_multi_prefix(group, terms, c: int = 12) -> ExtPoint:
        at t_j = searchsorted(digits, j, right) (the window total when
        t_j = B2), fetched with one gather for all j < 2^c - 1;
     5. sum_j j B_j = (2^c - 1) total - sum_{j < 2^c - 1} S_j, with the
-       first term as c doublings and one subtraction and the second as a
-       halving tree.
+       first term as one run of c doublings and one subtraction and the
+       second as a halving tree.
 
     Equal-index windows of the terms carry the same weight 2^(c w) and are
     added before one Horner fold. Every addition and doubling is
@@ -142,9 +141,7 @@ def msm_multi_prefix(group, terms, c: int = 12) -> ExtPoint:
     S = torch.where((t == B2)[None, None], total, S)
     del D
 
-    acc = ExtPoint(total)
-    for _ in range(c):
-        acc = group.double(acc)
+    acc = group.double(ExtPoint(total), k=c)
     acc = group.add(acc, group.neg(ExtPoint(total)))
     ssum = S
     size = m - 1

@@ -62,8 +62,9 @@ def double_scalar_mul_base(s_bytes, Q: ExtPoint, k_bytes, tables: VerifyTables):
 
     Every input is public (signature, key, digest), so lookups are gathers.
     Byte m of S enters at sub-step 63 - 2m, i.e. in the second half of step
-    31 - m. Doublings skip T except the last of each run of four, and the
-    Q additions skip T: nothing consumes it before the next doubling."""
+    31 - m. Each run of four doublings is one launch, T computed only at
+    its end, and the Q additions skip T: nothing consumes it before the
+    next doubling."""
     B = s_bytes.shape[1]
     wq = windows_from_bytes_le(k_bytes, 64).long()        # (64, B) MSB first
     tab_q = ED.window_table(Q, 4)                          # (16, 4, 10, B)
@@ -73,11 +74,9 @@ def double_scalar_mul_base(s_bytes, Q: ExtPoint, k_bytes, tables: VerifyTables):
 
     acc = ED.identity((B,), s_bytes.device)
     for i in range(32):
-        for j in range(4):
-            acc = ED.double(acc, need_t=(j == 3))
+        acc = ED.double(acc, k=4)
         acc = ED.add(acc, gather_q(wq[2 * i]), need_t=False)
-        for j in range(4):
-            acc = ED.double(acc, need_t=(j == 3))
+        acc = ED.double(acc, k=4)
         b = tables.byte[:, :, s_bytes[31 - i].long()]       # (3, 10, B)
         acc = ED.add_mixed(acc, b[0], b[1], b[2])
         acc = ED.add(acc, gather_q(wq[2 * i + 1]), need_t=False)

@@ -39,25 +39,55 @@ def _points(gen, W):
     return torch.stack([FQ.mul(x, lam), FQ.mul(y, lam), lam, FQ.mul(t, lam)])
 
 
-@pytest.mark.parametrize("W", [0, 1, 511, 512, 513, 768])
-def test_kernels_equal_plain_versions(W):
-    dev = _card()
+WIDTHS = [0, 1, 511, 512, 513, 768, 32768]
+
+
+def _operands(W):
+    """p, q: random points with, among the lanes, the identity (p), P + P,
+    P + (-P) and the largest TIGHT limbs in every coordinate; x: random
+    field elements with 0 and the largest TIGHT limbs."""
     gen = torch.Generator().manual_seed(W)
     p, q = _points(gen, W), _points(gen, W)
-    if W >= 3:
+    x = _rand_fe(gen, W)
+    top = torch.tensor(TIGHT, dtype=torch.int32)
+    if W >= 4:
+        p[:, :, 0] = torch.stack([FQ.zero((), "cpu"), FQ.one((), "cpu"),
+                                  FQ.one((), "cpu"), FQ.zero((), "cpu")])
         q[:, :, 1] = p[:, :, 1]
         q[:, :, 2] = torch.stack([FQ.neg(p[0, :, 2]), p[1, :, 2], p[2, :, 2],
                                   FQ.neg(p[3, :, 2])])
-    x = _rand_fe(gen, W)
-    got = [group.ed_add(p.to(dev), q.to(dev)), group.ed_double(p.to(dev)),
+        p[:, :, 3] = top.view(1, 10)
+        q[:, :, 3] = top.view(1, 10)
+        x[:, 0] = 0
+        x[:, 1] = top
+    return p, q, x
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+def test_kernels_equal_plain_versions(W):
+    dev = _card()
+    p, q, x = _operands(W)
+    got = [group.ed_add(p.to(dev), q.to(dev)),
            group.pow_const_kernel(x.to(dev), (P - 5) // 8),
            group.pow_const_kernel(x.to(dev), P - 2)]
     torch.cuda.synchronize()
-    want = [group.ed_add_plain(p, q), group.ed_double_plain(p),
+    want = [group.ed_add_plain(p, q),
             group.pow_const_plain(x, (P - 5) // 8), group.pow_const_plain(x, P - 2)]
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("need_t", [True, False])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("W", WIDTHS)
+def test_double_runs_equal_plain_versions(W, k, need_t):
+    dev = _card()
+    p, _, _ = _operands(W)
+    got = group.ed_double(p.to(dev), need_t, k)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), group.ed_double_plain(p, need_t, k))
 
 
 def test_zero_width_launches_nothing():
@@ -65,6 +95,7 @@ def test_zero_width_launches_nothing():
     group.reset_launches()
     p = torch.zeros((4, 10, 0), dtype=torch.int32, device=dev)
     assert group.ed_add(p, p) is p and group.ed_double(p) is p
+    assert group.ed_double(p, need_t=False, k=8) is p
     x = p[0].contiguous()
     assert group.pow_const_kernel(x, 5) is x
     assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0}

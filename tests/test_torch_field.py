@@ -151,3 +151,26 @@ def test_worst_case_limb_bounds():
     assert limbs_to_ints(tf.FQ.canon(worst), tf.WIDTHS)[0] == wv % P
     big = torch.tensor(ints_to_limbs([2**255 - 1, P, P - 1], tf.WIDTHS))
     assert limbs_to_ints(tf.FQ.canon(big), tf.WIDTHS) == [18, 0, P - 1]
+
+
+@pytest.mark.parametrize("limbs", ["random", "max"])
+@pytest.mark.parametrize("form", ["mul", "sq"])
+def test_kernel_product_lists_give_the_plain_columns(form, limbs):
+    """The products of fe25519.cuh as field.py models them (factors folded
+    into 32-bit operands: 2 a_i for two odd limbs, 19 b_j on the wrap; the
+    square as 55 products with the cross terms doubled) sum to the
+    100-term columns of mul_col_bounds, with every operand below 2^32."""
+    rng = random.Random(11)
+    terms = tf.mul_terms() if form == "mul" else tf.sq_terms()
+    assert len(terms) == (100 if form == "mul" else 55)
+    assert len({(i, j) for _, i, _, j, _ in terms}) == len(terms)
+
+    def limbs_of():
+        return list(tf.TIGHT) if limbs == "max" else [rng.randint(0, t) for t in tf.TIGHT]
+
+    for _ in range(1 if limbs == "max" else 50):
+        xs = limbs_of()
+        ys = xs if form == "sq" else limbs_of()
+        cols, top = tf.term_columns(terms, xs, ys)
+        assert cols == tf.mul_col_bounds(xs, ys)
+        assert top < 2**32 and max(cols) < 2**63

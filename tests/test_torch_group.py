@@ -16,7 +16,7 @@ from eccoxide_tpu.params import comb as jcomb
 from eccoxide_tpu_torch import convert
 from eccoxide_tpu_torch.curves import curve25519 as tc
 from eccoxide_tpu_torch.curves.edwards import ExtPoint
-from eccoxide_tpu_torch.field import FQ, WIDTHS
+from eccoxide_tpu_torch.field import FQ, SQRT_M1, WIDTHS
 from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 from eccoxide_tpu_torch.ops import group
 from eccoxide_tpu_torch.params import comb as tcomb
@@ -186,3 +186,41 @@ def test_window_table_neg_select_and_need_t_guard():
     with pytest.raises(ValueError):
         TED.add(half, p)
     assert _affine(ExtPoint(TED.double(half).xyzt)) == [CURVE.mul(4, q) for q in pts]
+
+
+@pytest.mark.parametrize("need_t", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_double_runs_match_jax_and_ints(k, need_t):
+    """ed_double(p, need_t, k) is k applications of the JAX package's
+    EDWARDS.double, and [2^k]P on Python ints; T (zeros without need_t)
+    and has_t follow need_t. Lanes: the identity, points of order 2 and
+    4, then random multiples."""
+    rng = random.Random(100 + k)
+    pts = [(0, 1), (0, P - 1), (SQRT_M1, 0)] + [MULT[rng.randrange(1, 256)] for _ in range(5)]
+    pc = _proj(pts, k)
+    got = TED.double(_port_pt(pc), need_t=need_t, k=k)
+    assert got.has_t is need_t and got.xyzt.shape == (4, 10, 8)
+    jout = _jax_ext(pc)
+    for _ in range(k):
+        jout = J("double", JED.double)(jout)
+    want = _canon_jax(jout)
+    ours = _canon_port(got)
+    for a, b in zip(ours[:3], want[:3]):
+        assert np.array_equal(a, b)
+    if need_t:
+        assert np.array_equal(ours[3], want[3])
+        assert _affine(got) == [CURVE.mul(1 << k, q) for q in pts]
+    else:
+        assert not got.xyzt[3].any()
+        assert _affine(ExtPoint(TED.double(got, k=1).xyzt)) == [CURVE.mul(2 << k, q) for q in pts]
+    one_by_one = _port_pt(pc)
+    for _ in range(k):
+        one_by_one = TED.double(one_by_one)
+    assert torch.equal(got.xyzt[:3], one_by_one.xyzt[:3])
+
+
+def test_double_run_rejects_bad_k():
+    p = _port_pt(_proj([MULT[3]], 1)).xyzt
+    for k in (0, -1, 1 << 16, 2.0):
+        with pytest.raises(ValueError):
+            group.ed_double(p, k=k)
