@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from eccoxide_tpu_torch/ops/csrc/, holds
-each kernel against its plain PyTorch version on the card, runs both
+each kernel against its plain PyTorch version on the card (``ed_add`` in
+its three modes: full, ``need_t=False`` and mixed), runs both
 verifiers of the main path at B=32768 (the per-signature Straus verifier
 through ``verify_host`` and the RLC batch verifier through
 ``verify_batch_host``) on signatures made by the port's integer oracle,
@@ -33,6 +34,14 @@ N_DISTINCT = 128
 MSM_LEVEL0 = 48 * (B // 2)       # first up-sweep level of the MSM at c=8
 CHECK_WIDTHS = (0, 1, 511, 512, 513, 768)
 DOUBLE_RUNS = (1, 4, 8)  # k of ed_double: one step, a Straus run, a Horner window at c=8
+# ed_add widths timed in the full mode: MSM level 0, Straus, the widest MSM
+# tree launch at or under 24576 (48 * 2^9), a Horner add
+ADD_WIDTHS = (MSM_LEVEL0, B, 48 * 2**9, 1)
+ADD_MODES = ("full", "need_t=False", "mixed")
+# per lane: limb multiply-adds, bytes (inputs read once, output written once)
+ADD_COST = {"full": (900, 3 * 160), "need_t=False": (800, 3 * 160),
+            "mixed": (800, 160 + 120 + 160)}
+STRAUS_ADDS = {"full": 14, "need_t=False": 64, "mixed": 32}   # per Straus call
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_CLK_PER_SM = 64
 GRAPH_LAUNCHES = 20      # wrapper calls captured in one CUDA graph
@@ -116,8 +125,9 @@ SASS_OPS = ("IMAD.WIDE", "IMAD", "SHF", "IADD3", "LDL", "STL")
 
 def sass_counts(lib_path) -> dict:
     """Static SASS opcode counts per port kernel from `cuobjdump -sass` of
-    the built library: IMAD.WIDE* apart from the other IMAD*, SHF*,
-    IADD3*, LDL*, STL*. "not available" where the toolkit lacks cuobjdump."""
+    the built library: IMAD.WIDE* apart from the other IMAD*, SHF*, IADD3*,
+    LDL*, STL*, and all instructions. "not available" where the toolkit
+    lacks cuobjdump."""
     from eccoxide_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -127,13 +137,14 @@ def sass_counts(lib_path) -> dict:
                          text=True, check=True).stdout
     counts, cur = {}, None
     for line in out.splitlines():
-        m = re.search(r"Function : .*?(ed_add_kernel|ed_double_kernel|pow_kernel)", line)
-        if m:
-            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+        if "Function : " in line:
+            m = re.search(r"Function : .*?(" + "|".join(PORT_KERNELS) + ")", line)
+            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS + ("all",), 0)) if m else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and cur is not None:
             op = m.group(1)
+            cur["all"] += 1
             if op.startswith("IMAD.WIDE"):
                 cur["IMAD.WIDE"] += 1
             else:
@@ -253,8 +264,41 @@ def main() -> int:
         lam = rand_fe(W)
         return torch.stack([FQ.mul(x, lam), FQ.mul(y, lam), lam, FQ.mul(t, lam)])
 
+    def rand_affine(W):
+        """Random affine multiples [k]B as x|y|t rows (3, 10, W)."""
+        return tables.byte[:, :, torch.randint(0, 256, (W,), generator=gen, device=dev)]
+
     def canon_pt(a):
         return FQ.canon(a.transpose(0, 1)).transpose(0, 1)
+
+    clock_hz = clock_max_mhz * 1e6
+    int_peak = INT32_MAD_PER_CLK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_hz
+
+    def timed(name, shape, ops, nbytes, k_fn, p_fn):
+        """Device ms per launch (graph replay), host us per call and plain
+        ms of one case, with its bound for `ops` multiply-adds and
+        `nbytes` bytes per lane."""
+        W = shape["W"]
+        ops_ms = W * ops / int_peak * 1e3
+        bytes_ms = W * nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"name": name, "shape": shape, "ms": graph_ms(k_fn),
+               "host_us_per_call": host_us_per_call(k_fn),
+               "plain_ms": events_ms(p_fn, 3),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        torch.cuda.synchronize()
+        return row
+
+    def add_case(W, mode="full"):
+        p = rand_points(W)
+        if mode == "mixed":
+            q = rand_affine(W)
+            k_fn, p_fn = (lambda: group.ed_add_mixed(p, q)), (lambda: group.ed_add_mixed_plain(p, q))
+        else:
+            q, need_t = rand_points(W), mode == "full"
+            k_fn, p_fn = (lambda: group.ed_add(p, q, need_t)), (lambda: group.ed_add_plain(p, q, need_t))
+        return ("ed_add", {"W": W, "mode": mode}, *ADD_COST[mode], k_fn, p_fn)
 
     checks = {"ed_add": [], "ed_double": [], "pow_const_kernel": []}
     max_err = {name: 0 for name in checks}
@@ -287,7 +331,14 @@ def main() -> int:
                                       p[2, :, 2], FQ.neg(p[3, :, 2])])  # P + (-P)
             p[:, :, 3] = max_fe(1)[:, 0]                        # largest TIGHT limbs
             q[:, :, 3] = p[:, :, 3]
-        compare("ed_add", group.ed_add(p, q), group.ed_add_plain(p, q), W, "points")
+        q_xyt = rand_affine(W)
+        if W >= 4:
+            q_xyt[:, :, 3] = max_fe(1)[:, 0]
+        for need_t in (True, False):
+            compare("ed_add", group.ed_add(p, q, need_t), group.ed_add_plain(p, q, need_t),
+                    W, f"need_t={need_t}")
+        compare("ed_add", group.ed_add_mixed(p, q_xyt), group.ed_add_mixed_plain(p, q_xyt),
+                W, "mixed")
         for k in (1,) if W == MSM_LEVEL0 else DOUBLE_RUNS:
             for need_t in (True, False):
                 compare("ed_double", group.ed_double(p, need_t, k),
@@ -342,15 +393,20 @@ def main() -> int:
     torch.cuda.synchronize()
     straus_s = time.perf_counter() - t0
     straus_launches = group.launches()
+    straus_add_modes = dict(group.ed_add.launches_by_mode)
     expected = [i not in bad for i in range(B)]
     if len(straus) != B or straus != expected:
         wrong = [i for i in range(B) if straus[i] != expected[i]][:10]
         raise RuntimeError(f"verify_host wrong at lanes {wrong}")
     emit({"phase": "straus_verify_host", "B": B, "accepted": sum(straus),
           "rejected_lanes": {str(i): bad[i] for i in bad if not straus[i]},
-          "vectors_s": vectors_s, "first_call_s": straus_s, "launches": straus_launches})
+          "vectors_s": vectors_s, "first_call_s": straus_s, "launches": straus_launches,
+          "ed_add_launches_by_mode": straus_add_modes})
     if straus_launches["ed_double"] != 64:
         raise RuntimeError(f"Straus ran {straus_launches['ed_double']} doubling launches, not 64")
+    if straus_launches["ed_add"] != 110 or straus_add_modes != STRAUS_ADDS:
+        raise RuntimeError(f"Straus ran {straus_launches['ed_add']} add launches "
+                           f"{straus_add_modes}, not 110 {STRAUS_ADDS}")
 
     before = group.launches()
     t0 = time.perf_counter()
@@ -385,14 +441,14 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the main path never launched: {counts}")
 
     # -- phase 6: kernel times -------------------------------------------------
-    clock_hz = clock_max_mhz * 1e6
-    int_peak = INT32_MAD_PER_CLK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_hz
     n_dig = len(group.exp_digits(e_sqrt))
     sources = {
         "ed_add": "eccoxide_tpu/ops/pallas_group.py:92 (_add_call, via pallas_add :144)",
         "ed_double": "eccoxide_tpu/ops/pallas_group.py:119 (_double_call, via pallas_double :161)",
         "pow_const_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241)",
     }
+    kernel_of = {"ed_add": "ed_add_kernel", "ed_double": "ed_double_kernel",
+                 "pow_const_kernel": "pow_kernel"}
 
     def double_case(W, k, need_t):
         p = rand_points(W)
@@ -403,11 +459,6 @@ def main() -> int:
                 lambda: group.ed_double(p, need_t, k),
                 lambda: group.ed_double_plain(p, need_t, k))
 
-    def add_case(W):
-        p, q = rand_points(W), rand_points(W)
-        return ("ed_add", {"W": W}, 9 * 100, 3 * 160,
-                lambda: group.ed_add(p, q), lambda: group.ed_add_plain(p, q))
-
     def pow_case(W):
         x = rand_fe(W)
         return ("pow_const_kernel", {"W": W, "e": "(p-5)/8"},
@@ -416,29 +467,27 @@ def main() -> int:
                 lambda: group.pow_const_plain(x, e_sqrt))
 
     # the first case of each kernel is its row in the kernels line; the
-    # Straus shapes (W = B) are held against the profile below
-    cases = [add_case(MSM_LEVEL0), add_case(B),
-             double_case(B, 4, True), double_case(B, 1, True),
-             double_case(1, 8, True), double_case(1, 1, True),
-             pow_case(B)]
+    # Straus shapes (W = B) are also profiled alone, host-issued, to hold the
+    # graph-replay time against the profiler outside the verify path
+    cases = ([add_case(W) for W in ADD_WIDTHS]
+             + [add_case(B, mode) for mode in ADD_MODES[1:]]
+             + [double_case(B, 4, True), double_case(B, 1, True),
+                double_case(1, 8, True), double_case(1, 1, True),
+                pow_case(B)])
     timings = []
-    for name, shape, ops, nbytes, k_fn, p_fn in cases:
-        W = shape["W"]
-        ops_ms = W * ops / int_peak * 1e3
-        bytes_ms = W * nbytes / HBM_BYTES_PER_S * 1e3
-        timings.append({
-            "name": name, "shape": shape, "ms": graph_ms(k_fn),
-            "host_us_per_call": host_us_per_call(k_fn),
-            "plain_ms": events_ms(p_fn, 3),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms})
-        del k_fn, p_fn
-        torch.cuda.synchronize()
+    for case in cases:
+        row = timed(*case)
+        if row["shape"]["W"] == B:
+            k_fn = case[4]
+            alone = device_profile(lambda: [k_fn() for _ in range(GRAPH_LAUNCHES)])
+            row["profiler_ms_per_launch_alone"] = alone["port_kernels"][kernel_of[row["name"]]]["ms_per_launch"]
+        timings.append(row)
     emit({"phase": "kernel_times", "card": card,
           "timer": f"ms: CUDA graph of {GRAPH_LAUNCHES} wrapper calls, {GRAPH_REPLAYS} "
                    "replays between CUDA events; host_us_per_call: host clock, no "
-                   "synchronize between calls; plain_ms: CUDA events around host-issued calls",
+                   "synchronize between calls; plain_ms: CUDA events around host-issued calls; "
+                   f"profiler_ms_per_launch_alone: torch.profiler over {GRAPH_LAUNCHES} "
+                   "host-issued calls",
           "timings": timings})
 
     # verifies/s: host clock around whole calls ending in synchronize
@@ -460,10 +509,13 @@ def main() -> int:
     hash_runs = host_rate(lambda: pe.host_inputs(pks, msgs, sigs, dev))
     straus_core = host_rate(lambda: pe.verify_core(*inputs, tables))
     rlc_core = host_rate(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8))
+    # the core's own peak: above what the script holds when it starts
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     pb.rlc_verify_core(*inputs, z, tables, msm_c=8)
     torch.cuda.synchronize()
-    rlc_peak = torch.cuda.max_memory_allocated()
+    rlc_peak = torch.cuda.max_memory_allocated() - held
     emit({"phase": "times", "card": card, "B": B, "sha512_hasher": sha512.hasher(),
           "straus_verify_host_s": straus_runs,
           "straus_verifies_per_s": B / statistics.median(straus_runs),
@@ -471,6 +523,7 @@ def main() -> int:
           "rlc_verifies_per_s": B / statistics.median(rlc_runs),
           "host_inputs_s": hash_runs, "straus_core_s": straus_core,
           "rlc_core_s": rlc_core, "rlc_core_peak_bytes": rlc_peak,
+          "script_held_bytes": held,
           "int32_mad_peak_per_s": int_peak, "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # -- where the device time goes: one profiled call of each core ----------
@@ -480,14 +533,20 @@ def main() -> int:
 
     # the kernels line: each kernel's first case, its graph-replay time held
     # against the profiler's per-launch time over one Straus verify_core
-    # (every launch there is at W = B; the doublings are runs of k = 4)
-    kernel_of = {"ed_add": "ed_add_kernel", "ed_double": "ed_double_kernel",
-                 "pow_const_kernel": "pow_kernel"}
+    # (every launch there is at W = B; the doublings are runs of k = 4; the
+    # adds' graph and alone times are weighted by the Straus call's launches
+    # of each mode). ed_add's other cases are listed under its row as "modes".
     kernels = []
     for name in sources:
         mine = [t for t in timings if t["name"] == name]
-        main_row, straus_row = mine[0], next(t for t in mine if t["shape"]["W"] == B)
-        kernels.append({
+        main_row = mine[0]
+        at_b = [t for t in mine if t["shape"]["W"] == B]
+        if name != "ed_add":
+            at_b = at_b[:1]
+        weights = [straus_add_modes[t["shape"]["mode"]] if name == "ed_add" else 1 for t in at_b]
+        mix = {key: sum(w * t[key] for w, t in zip(weights, at_b)) / sum(weights)
+               for key in ("ms", "profiler_ms_per_launch_alone")}
+        row = {
             "name": name, "route": "cuda",
             "source": "eccoxide_tpu_torch/ops/csrc/group.cu",
             "replaces": sources[name], "launches": counts[name],
@@ -496,10 +555,15 @@ def main() -> int:
             "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": main_row["shape"], "host_us_per_call": main_row["host_us_per_call"],
             "cross_check": {
-                "shape": straus_row["shape"], "graph_ms": straus_row["ms"],
+                "shape": {"W": B, "mode": "Straus mix"} if name == "ed_add" else at_b[0]["shape"],
+                "graph_ms": mix["ms"],
+                "profiler_ms_per_launch_alone": mix["profiler_ms_per_launch_alone"],
                 "profiler_ms_per_launch":
                     profiles["straus_core"]["port_kernels"][kernel_of[name]]["ms_per_launch"]},
-        })
+        }
+        if name == "ed_add":
+            row["modes"] = [{k: v for k, v in t.items() if k != "name"} for t in mine[1:]]
+        kernels.append(row)
 
     print(card_line)
     emit({"kernels": kernels})

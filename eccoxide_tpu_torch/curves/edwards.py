@@ -17,10 +17,9 @@ class ExtPoint:
     """Extended coordinates (X:Y:Z:T), T = XY/Z, packed as ``xyzt``.
 
     ``has_t`` is False for a point made with ``need_t=False``: its T is not
-    the point's T (a doubling leaves zeros on the card and on the CPU; the
-    add kernel computes it anyway, its plain version leaves zeros), and
-    ``with_t()`` refuses it, so an addition can never consume it. Doubling
-    and equality read no T."""
+    the point's T (an addition or a doubling leaves zeros, on the card and
+    on the CPU alike), and ``with_t()`` refuses it, so an addition can never
+    consume it. Doubling and equality read no T."""
 
     __slots__ = ("xyzt", "has_t")
 
@@ -70,10 +69,10 @@ class EdwardsCurve:
     def add(self, p: ExtPoint, q: ExtPoint, need_t: bool = True) -> ExtPoint:
         return ExtPoint(group.ed_add(p.with_t(), q.with_t(), need_t), need_t)
 
-    def add_mixed(self, p: ExtPoint, qx, qy, qt) -> ExtPoint:
-        """p + (qx, qy) for an affine second operand (Z2 = 1, T2 = qt)."""
-        one = self.field.one(qx.shape[1:], qx.device)
-        return self.add(p, ExtPoint(torch.stack([qx, qy, one, qt])))
+    def add_mixed(self, p: ExtPoint, q_xyt: torch.Tensor) -> ExtPoint:
+        """p + q for an affine q packed as (3, 10, *batch) = x|y|t (Z2 = 1,
+        t = xy): one launch of the add kernel in its mixed mode."""
+        return ExtPoint(group.ed_add_mixed(p.with_t(), q_xyt))
 
     def double(self, p: ExtPoint, need_t: bool = True, k: int = 1) -> ExtPoint:
         """[2^k]p in one kernel launch on the card; T as need_t says."""

@@ -15,15 +15,19 @@ Overflow argument for FQ (all limbs are kept non-negative, so ``>>`` and
 - ``TIGHT`` is the per-limb bound that every public FQ operation returns
   (the output of ``_carry``). It is computed below as the fixed point of
   the bounds that ``add``, ``sub`` and ``mul`` produce from inputs within
-  ``TIGHT``: limb 1 may exceed its 25 bits by the carry out of limb 0 after
-  the 19-fold, and limb 5 by the second carry out of limb 4 (the carry
-  runs as two interleaved chains, ``CARRY_STEPS``); every other limb is
-  strict.
-- ``mul``/``square`` take limbs <= ``TIGHT``; a product column is a sum of
-  10 products with factors 1, 2, 19 or 38 (2 for odd*odd limbs, 19 for the
-  wrap past 2^255), bounded by ``MUL_COL`` < 2^63. The kernels fold the
-  factors into 32-bit operands (``mul_terms``; ``sq_terms`` for the
-  55-product square), each below 2^32, giving the same columns.
+  ``TIGHT`` and that ``mul`` produces from two ``LAZY`` operands: limb 1
+  may exceed its 25 bits by the carry out of limb 0 after the 19-fold (the
+  carry is one ripple, ``CARRY_STEPS``); every other limb is strict.
+- ``add_lazy``/``sub_lazy`` skip the carry: ``x + y`` or ``x + PAD - y``
+  of TIGHT inputs, limbs within ``LAZY`` (below 2^28), valid only as an
+  operand of ``mul`` (the kernels' sums for a product, fe25519.cuh
+  ``add_or_sub_lazy``).
+- ``mul`` takes limbs <= ``LAZY`` (TIGHT values included), ``square``
+  limbs <= ``TIGHT``; a product column is a sum of 10 products with
+  factors 1, 2, 19 or 38 (2 for odd*odd limbs, 19 for the wrap past
+  2^255), bounded by ``MUL_COL`` < 2^63. The kernels fold the factors into
+  32-bit operands (``mul_terms``; ``sq_terms`` for the 55-product square),
+  each below 2^32, giving the same columns.
 - ``add`` takes limbs <= ``TIGHT``, its sums stay below 2^31 (the kernels
   add in int32).
 - ``sub`` computes ``x + PAD - y`` with ``PAD`` the limbs of 2p; every PAD
@@ -110,13 +114,12 @@ def term_columns(terms, xs, ys) -> tuple[list[int], int]:
 
 # The carry schedule of ``_carry`` and of fe25519.cuh ``carry``: step i
 # moves the bits of limb i above its width into limb i + 1 (into limb 0
-# times 19 for i = 9, since 2^255 = 19 mod p). ref10's two interleaved
-# chains, 0->1 beside 4->5 and so on, then the wrap 9->0 and one more 0->1:
-# the two steps of each pair are independent, so the dependent path is 7
-# steps long instead of the 11 of the single ripple (0, 1, ..., 9, 0), for
-# one step more in all. On the H100 the kernels measured slower with it,
-# not faster: they are bound by issued instructions (PERF.md).
-CARRY_STEPS = (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0)
+# times 19 for i = 9, since 2^255 = 19 mod p). One ripple 0->1 .. 9->0,
+# then 0->1 again: 11 steps. ref10's two interleaved chains (0->1 beside
+# 4->5, ...) shorten the dependent path to 7 steps but run 12, and on the
+# H100 every kernel measured slower with them: the kernels are bound by
+# issued instructions, not by the carry's latency (PERF.md).
+CARRY_STEPS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 0)
 
 
 def carry_bounds(h) -> list[int]:
@@ -138,13 +141,20 @@ def carry_bounds(h) -> list[int]:
 PAD = [2 * v for v in int_to_limbs(P, WIDTHS)]
 
 
+def lazy_bounds(t) -> list[int]:
+    """Limb bounds of ``add_lazy``/``sub_lazy`` for inputs within t
+    (x + PAD - y; it dominates x + y, since PAD >= t)."""
+    return [a + b for a, b in zip(t, PAD)]
+
+
 def _tight_fixed_point() -> list[int]:
     t = list(MASKS)
     while True:
         add_in = [2 * a for a in t]
-        sub_in = [a + b for a, b in zip(t, PAD)]
+        sub_in = lazy_bounds(t)
         outs = [
             carry_bounds(mul_col_bounds(t, t)),
+            carry_bounds(mul_col_bounds(sub_in, sub_in)),
             carry_bounds(add_in),
             carry_bounds(sub_in),
         ]
@@ -155,17 +165,19 @@ def _tight_fixed_point() -> list[int]:
 
 
 TIGHT = _tight_fixed_point()
-MUL_COL = max(mul_col_bounds(TIGHT, TIGHT))
-assert MUL_COL < _I63
+LAZY = lazy_bounds(TIGHT)
+MUL_COL = max(mul_col_bounds(LAZY, LAZY))
+assert MUL_COL < _I63 and max(LAZY) < _I31
 assert max(2 * a for a in TIGHT) < _I31
 assert all(PAD[i] >= TIGHT[i] for i in range(10))
 assert max(a + b for a, b in zip(TIGHT, PAD)) < _I31
 assert sum(t << o for t, o in zip(TIGHT, OFFS)) < 2**256
 # the kernels' product lists give the plain version's columns (so each is
-# below MUL_COL < 2^63) from premultiplied operands below 2^32
-for _terms in (mul_terms(), sq_terms()):
-    _cols, _top = term_columns(_terms, TIGHT, TIGHT)
-    assert _cols == mul_col_bounds(TIGHT, TIGHT) and _top < 2**32
+# below MUL_COL < 2^63) from premultiplied operands below 2^32: squares of
+# TIGHT input, products of LAZY (or TIGHT, which LAZY dominates) operands
+for _terms, _bound in ((mul_terms(), LAZY), (sq_terms(), TIGHT)):
+    _cols, _top = term_columns(_terms, _bound, _bound)
+    assert _cols == mul_col_bounds(_bound, _bound) and _top < 2**32
 
 SQRT_M1 = pow(2, (P - 1) // 4, P)
 
@@ -257,6 +269,15 @@ class Fe25519:
     def add(self, x, y):
         return _carry(x.to(torch.int64) + y)
 
+    def add_lazy(self, x, y):
+        """x + y without the carry: only an operand of ``mul`` (LAZY)."""
+        return x + y
+
+    def sub_lazy(self, x, y):
+        """x + 2p - y without the carry: only an operand of ``mul`` (LAZY)."""
+        pad = _bview(self._c.get(x.device)["pad"], x)
+        return (x.to(torch.int64) + pad - y).to(torch.int32)
+
     def sub(self, x, y):
         pad = _bview(self._c.get(x.device)["pad"], x)
         return _carry(x.to(torch.int64) + pad - y)
@@ -266,6 +287,7 @@ class Fe25519:
         return _carry(pad - y.to(torch.int64))
 
     def mul(self, x, y):
+        """x * y for TIGHT or LAZY operands; TIGHT limbs out."""
         c = self._c.get(x.device)
         x, y = torch.broadcast_tensors(x, y)
         prod = x.to(torch.int64)[:, None] * y.to(torch.int64)[None, :]

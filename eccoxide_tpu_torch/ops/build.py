@@ -127,7 +127,7 @@ _libs: dict = {}
 
 def _bind_kernels(lib):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ed_add_launch.argtypes = [vp, vp, vp, i64, vp]
+    lib.ed_add_launch.argtypes = [vp, vp, vp, i32, i32, i64, vp]
     lib.ed_double_launch.argtypes = [vp, vp, i32, i32, i64, vp]
     lib.pow_launch.argtypes = [vp, vp, vp, i32, i64, vp]
     for fn in (lib.ed_add_launch, lib.ed_double_launch, lib.pow_launch):

@@ -3,9 +3,9 @@
 // Same format and same carry schedule as eccoxide_tpu_torch/field.py: 10
 // non-negative limbs of alternating 26 and 25 bits (radix 2^25.5), one
 // value per thread, products accumulated in 64-bit unsigned registers.
-// Every function returns TIGHT limbs (field.py TIGHT) from TIGHT inputs;
-// field.py asserts the bounds that make the 64-bit columns and the 32-bit
-// sums exact.
+// Every function returns TIGHT limbs (field.py TIGHT) from TIGHT inputs,
+// mul also from LAZY ones (add_or_sub_lazy); field.py asserts the bounds
+// that make the 64-bit columns and the 32-bit sums exact.
 #pragma once
 
 #include <cstdint>
@@ -49,21 +49,18 @@ __device__ __forceinline__ void carry_step(uint64_t h[10]) {
   h[(i + 1) % 10] += (i == 9 ? 19u : 1u) * c;
 }
 
-// field.py _carry, step for step (CARRY_STEPS): ref10's two interleaved
-// chains 0->1..4->5 and 4->5..8->9, then 9->0 and 0->1. The two steps of
-// each pair are independent, so the dependent path is 7 steps, not the 11
-// of one ripple; it costs one step more, and the kernels measured slower
-// with it (PERF.md).
+// field.py _carry, step for step (CARRY_STEPS): one ripple 0->1 .. 9->0,
+// then 0->1 again. ref10's interleaved chains run one step more and
+// measured slower in every kernel (PERF.md).
 __device__ __forceinline__ void carry(fe& r, uint64_t h[10]) {
   carry_step<0>(h);
-  carry_step<4>(h);
   carry_step<1>(h);
-  carry_step<5>(h);
   carry_step<2>(h);
-  carry_step<6>(h);
   carry_step<3>(h);
-  carry_step<7>(h);
   carry_step<4>(h);
+  carry_step<5>(h);
+  carry_step<6>(h);
+  carry_step<7>(h);
   carry_step<8>(h);
   carry_step<9>(h);
   carry_step<0>(h);
@@ -77,8 +74,8 @@ __device__ __forceinline__ void carry(fe& r, uint64_t h[10]) {
 // (2 a_i for odd i, 19 b_j), so every partial product is one 32x32->64
 // multiply-add into its column (IMAD.WIDE.U32 with a 64-bit addend).
 // field.py mul_terms is this list of products; it asserts at import that
-// every operand of TIGHT input is below 2^32 and that the columns equal
-// the plain version's.
+// every operand of LAZY input (TIGHT included) is below 2^32 and that the
+// columns equal the plain version's.
 __device__ __forceinline__ void mul(fe& r, const fe& a, const fe& b) {
   uint32_t a2[10], b19[10];
 #pragma unroll
@@ -141,6 +138,16 @@ __device__ __forceinline__ void sub(fe& r, const fe& a, const fe& b) {
   for (int i = 0; i < 10; ++i)
     h[i] = static_cast<uint64_t>(a.v[i]) + kPad[i] - b.v[i];
   carry(r, h);
+}
+
+// a + 2p - b when minus, else a + b, with no carry: field.py add_lazy and
+// sub_lazy. Limbs below 2^28 (field.py LAZY), so valid only as an operand
+// of mul, whose columns and premultiplied operands field.py bounds for
+// LAZY input. One code path for a sign that varies by warp.
+__device__ __forceinline__ void add_or_sub_lazy(fe& r, const fe& a, const fe& b,
+                                                bool minus) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = a.v[i] + (minus ? kPad[i] - b.v[i] : b.v[i]);
 }
 
 __device__ __forceinline__ void neg(fe& r, const fe& b) {

@@ -4,14 +4,18 @@
 // PyTorch versions in eccoxide_tpu_torch/ops/group.py).
 //
 // Layout: a field batch is int32 (10, W) with W contiguous; a point is
-// (4, 10, W) = X|Y|Z|T. One thread per batch lane: thread `lane` reads limb
-// i of coordinate c at (c * 10 + i) * W + lane, so a warp reads 32
-// neighbouring words per limb. Coordinates live in registers. The grid is
-// ceil(W / 128) blocks with an `if (lane < W)` guard, so no width needs
-// padding; the wrapper never launches for W == 0. At W = 32768 that is 256
-// blocks, two on each of 124 SMs and one on the other 8: the busiest SM
-// holds 256 threads, the least any block size can give, since 32768 lanes
-// over 132 SMs need 249 each, rounded up to whole warps.
+// (4, 10, W) = X|Y|Z|T, the affine operand of a mixed addition (3, 10, W) =
+// x|y|t. Limb i of row c of lane `lane` is at (c * 10 + i) * W + lane, so
+// 32 neighbouring lanes read 32 neighbouring words per limb. Coordinates
+// live in registers. The wrapper never launches for W == 0, and no width
+// needs padding:
+// - ed_double and pow: one thread per lane, ceil(W / 128) blocks of 128
+//   threads, `if (lane < W)` guard. At W = 32768 the busiest SM holds 256
+//   threads, the least any block size gives (249 lanes per SM, in warps).
+// - ed_add: one lane on four threads, one in each warp of a 128-thread
+//   block, so a block serves 32 lanes and there are ceil(W / 32) blocks:
+//   four times the warps for the same width. Tail lanes load lane W - 1,
+//   reach the block's barrier and store nothing.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -32,55 +36,98 @@ __device__ __constant__ uint32_t kD2[10] = {
     0x2b2f159, 0x1a6e509, 0x22add7a, 0xd4141d, 0x38052,
     0xf3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x901b67};
 
+constexpr int kAddLanes = 32;                // lanes per ed_add block
+constexpr int kAddBlocksPerSM = 8;           // 1024 blocks at W = 32768 fill 132 SMs once
+
 // Replaces ops/pallas_group.py _add_call (pallas_add): complete a=-1
-// addition add-2008-hwcd-3 in extended coordinates, T included.
-// Bound on the H100: bytes, by the roofline count. Per lane it does 9 field
-// products (900 limb multiply-adds) against 480 bytes moved, below the
-// card's ~5 int32 multiply-adds per byte. So the design reads each input
-// word once with coalesced loads, keeps every intermediate in registers,
-// and writes each output word once; the carries and 64-bit accumulation
-// the count leaves out are what the measured time adds to the bound.
-__global__ void __launch_bounds__(kThreads)
+// addition add-2008-hwcd-3 in extended coordinates. Two modes beside the
+// full one: need_t == 0 writes zeros for T instead of computing E*H, and
+// mixed != 0 takes an affine q = x|y|t (Z2 = 1, so D = 2 Z1 needs no
+// product), as the reference's add_b and add_mixed_b.
+//
+// Bound on the H100: bytes, by the roofline count (9 products, 900 limb
+// multiply-adds, against 480 bytes per lane in the full mode). One thread
+// per lane ran the 9 products in series: at W = 32768 that left 8 warps
+// per SM to hide one lane's dependent multiply-add chains, and at large W
+// 140 registers left few warps to keep loads in flight. Here warp r of a
+// block takes role r for the block's 32 lanes, so every branch on the role
+// is uniform within a warp:
+// - stage 1, one product each: A = (Y1-X1)(Y2-X2), B = (Y1+X1)(Y2+X2),
+//   C = T1 T2 2d (two products, the stage's longest), D = 2 Z1 Z2; each
+//   warp loads only the rows it needs, first thing;
+// - exchange: A, B, C, D through 5 KB of shared memory, one barrier;
+// - stage 2, one output row each: X3 = E F, Y3 = G H, Z3 = F G, T3 = E H,
+//   with E = B-A, F = D-C, G = D+C, H = B+A, each stored coalesced.
+// A lane's dependent path is 3 products instead of 9, a thread holds two
+// operands and a product instead of eight field elements, and a width
+// runs four times the warps. Products are symmetric limb for limb (same
+// columns), so every warp runs one shared code path per stage. Past the
+// lane's latency the kernel is bound by issued instructions (PERF.md), so
+// the 12 sums that feed only a product skip their carry (add_or_sub_lazy):
+// a lane runs 10 carries where one thread per lane ran 18.
+__global__ void __launch_bounds__(4 * kAddLanes, kAddBlocksPerSM)
     ed_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                  int32_t* __restrict__ o, int64_t W) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= W) return;
+                  int32_t* __restrict__ o, int mixed, int need_t, int64_t W) {
+  __shared__ uint32_t abcd[4][10][kAddLanes];
+  const int role = threadIdx.x / kAddLanes;
+  const int l = threadIdx.x % kAddLanes;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kAddLanes + l;
+  const int64_t at = lane < W ? lane : W - 1;
   const int64_t s = 10 * W;
-  fe x1, y1, x2, y2, a, b, t0, t1;
-  fe25519::load(x1, p, W, lane);
-  fe25519::load(y1, p + s, W, lane);
-  fe25519::load(x2, q, W, lane);
-  fe25519::load(y2, q + s, W, lane);
-  fe25519::sub(t0, y1, x1);
-  fe25519::sub(t1, y2, x2);
-  fe25519::mul(a, t0, t1);                    // A = (Y1-X1)(Y2-X2)
-  fe25519::add(t0, y1, x1);
-  fe25519::add(t1, y2, x2);
-  fe25519::mul(b, t0, t1);                    // B = (Y1+X1)(Y2+X2)
-  fe c, d, d2;
-  fe25519::load(t0, p + 3 * s, W, lane);
-  fe25519::load(t1, q + 3 * s, W, lane);
-  fe25519::mul(c, t0, t1);
+  fe u, v, r;
+  if (role < 2) {                             // (Y1 -+ X1), (Y2 -+ X2)
+    fe x, y;
+    fe25519::load(y, p + s, W, at);
+    fe25519::load(x, p, W, at);
+    fe25519::add_or_sub_lazy(u, y, x, role == 0);
+    fe25519::load(y, q + s, W, at);
+    fe25519::load(x, q, W, at);
+    fe25519::add_or_sub_lazy(v, y, x, role == 0);
+  } else if (role == 2) {                     // T1, T2
+    fe25519::load(u, p + 3 * s, W, at);
+    fe25519::load(v, q + (mixed ? 2 : 3) * s, W, at);
+  } else {                                    // Z1, Z2
+    fe25519::load(u, p + 2 * s, W, at);
+    if (!mixed) fe25519::load(v, q + 2 * s, W, at);
+  }
+  if (role == 3 && mixed) {
+    r = u;
+  } else {
+    fe25519::mul(r, u, v);
+  }
+  if (role == 2) {
 #pragma unroll
-  for (int i = 0; i < 10; ++i) d2.v[i] = kD2[i];
-  fe25519::mul(c, c, d2);                     // C = T1 T2 2d
-  fe25519::load(t0, p + 2 * s, W, lane);
-  fe25519::load(t1, q + 2 * s, W, lane);
-  fe25519::mul(d, t0, t1);
-  fe25519::add(d, d, d);                      // D = 2 Z1 Z2
-  fe e, f, g, h;
-  fe25519::sub(e, b, a);
-  fe25519::sub(f, d, c);
-  fe25519::add(g, d, c);
-  fe25519::add(h, b, a);
-  fe25519::mul(t0, e, f);
-  fe25519::store(o, t0, W, lane);
-  fe25519::mul(t0, g, h);
-  fe25519::store(o + s, t0, W, lane);
-  fe25519::mul(t0, f, g);
-  fe25519::store(o + 2 * s, t0, W, lane);
-  fe25519::mul(t0, e, h);
-  fe25519::store(o + 3 * s, t0, W, lane);
+    for (int i = 0; i < 10; ++i) v.v[i] = kD2[i];
+    fe25519::mul(r, r, v);                    // C = T1 T2 2d
+  } else if (role == 3) {
+    fe25519::add(r, r, r);                    // D = 2 Z1 Z2
+  }
+#pragma unroll
+  for (int i = 0; i < 10; ++i) abcd[role][i][l] = r.v[i];
+  __syncthreads();
+  if (role == 3 && !need_t) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) r.v[i] = 0;
+  } else {
+    // role 0: (B-A)(D-C); 1: (D+C)(B+A); 2: (D-C)(D+C); 3: (B-A)(B+A)
+    const int hi_u = (role == 0 || role == 3) ? 1 : 3;
+    const int hi_v = (role & 1) ? 1 : 3;
+    fe a, b;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      a.v[i] = abcd[hi_u][i][l];
+      b.v[i] = abcd[hi_u - 1][i][l];
+    }
+    fe25519::add_or_sub_lazy(u, a, b, role != 1);
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      a.v[i] = abcd[hi_v][i][l];
+      b.v[i] = abcd[hi_v - 1][i][l];
+    }
+    fe25519::add_or_sub_lazy(v, a, b, role == 0);
+    fe25519::mul(r, u, v);
+  }
+  if (lane < W) fe25519::store(o + role * s, r, W, lane);
 }
 
 // Replaces ops/pallas_group.py _double_call (pallas_double): [2^k]P by k
@@ -176,10 +223,11 @@ inline unsigned blocks_for(int64_t W) {
 
 extern "C" {
 
-int ed_add_launch(const int32_t* p, const int32_t* q, int32_t* o, int64_t W,
-                  void* stream) {
-  ed_add_kernel<<<blocks_for(W), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, q, o, W);
+int ed_add_launch(const int32_t* p, const int32_t* q, int32_t* o, int mixed,
+                  int need_t, int64_t W, void* stream) {
+  const auto blocks = static_cast<unsigned>((W + kAddLanes - 1) / kAddLanes);
+  ed_add_kernel<<<blocks, 4 * kAddLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, q, o, mixed, need_t, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,12 @@ the JAX package's ``ops/pallas_group.py``.
 
 Three wrappers, each with its plain PyTorch version beside it:
 
-- ``ed_add(p, q)``: complete a=-1 addition (add-2008-hwcd-3); the kernel
-  always computes T;
+- ``ed_add(p, q, need_t)``: complete a=-1 addition (add-2008-hwcd-3); T
+  (the E*H product) only when ``need_t``, zeros otherwise, on the card and
+  in the plain version alike;
+- ``ed_add_mixed(p, q_xyt)``: the same addition with an affine second
+  operand ``(3, 10, *batch)`` = x|y|t (Z2 = 1, so D = 2 Z1 takes no
+  product); the same kernel, counted in ``ed_add.launches``;
 - ``ed_double(p, need_t, k)``: [2^k]p by k steps of dbl-2008-hwcd in one
   launch, X, Y, Z kept in registers between steps; T (the E*H product of
   the last step) only when ``need_t``, zeros otherwise, on the card and
@@ -15,7 +19,8 @@ Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
 ``field.py``); field batches are ``(10, *batch)``. A wrapper given CPU
 tensors runs the plain version; given CUDA tensors it launches its kernel
 (``csrc/group.cu``) or raises. Each wrapper counts its launches in a plain
-integer attribute ``launches``; nothing else touches the count.
+integer attribute ``launches``, and ``ed_add`` splits its count by mode in
+``ed_add.launches_by_mode``; nothing else touches the counts.
 
 The JAX package's adapter ``PallasGroup`` has no class here: the curve
 ``curves.curve25519.EDWARDS`` sends every add and double through these
@@ -70,21 +75,33 @@ def _stream(dev) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _add_plain(p, x2, y2, z2, t2, need_t: bool):
+    f = FQ
+    x1, y1, z1, t1 = p.unbind(0)
+    a = f.mul(f.sub_lazy(y1, x1), f.sub_lazy(y2, x2))
+    b = f.mul(f.add_lazy(y1, x1), f.add_lazy(y2, x2))
+    d2 = f.const(D2, (1,) * (p.dim() - 2), p.device)
+    c = f.mul(f.mul(t1, t2), d2)
+    zz = z1 if z2 is None else f.mul(z1, z2)
+    d = f.add(zz, zz)
+    # every sum below feeds only a product: no carry (field.py LAZY)
+    e, fv = f.sub_lazy(b, a), f.sub_lazy(d, c)
+    g, h = f.add_lazy(d, c), f.add_lazy(b, a)
+    t3 = f.mul(e, h) if need_t else torch.zeros_like(x1)
+    return torch.stack([f.mul(e, fv), f.mul(g, h), f.mul(fv, g), t3])
+
+
 def ed_add_plain(p, q, need_t: bool = True):
     """p + q on packed points; with need_t=False the E*H product is skipped
     and T is returned as zeros (the caller marks it unusable)."""
-    f = FQ
-    x1, y1, z1, t1 = p.unbind(0)
     x2, y2, z2, t2 = q.unbind(0)
-    a = f.mul(f.sub(y1, x1), f.sub(y2, x2))
-    b = f.mul(f.add(y1, x1), f.add(y2, x2))
-    d2 = f.const(D2, (1,) * (p.dim() - 2), p.device)
-    c = f.mul(f.mul(t1, t2), d2)
-    zz = f.mul(z1, z2)
-    d = f.add(zz, zz)
-    e, fv, g, h = f.sub(b, a), f.sub(d, c), f.add(d, c), f.add(b, a)
-    t3 = f.mul(e, h) if need_t else torch.zeros_like(x1)
-    return torch.stack([f.mul(e, fv), f.mul(g, h), f.mul(fv, g), t3])
+    return _add_plain(p, x2, y2, z2, t2, need_t)
+
+
+def ed_add_mixed_plain(p, q_xyt):
+    """p + q for an affine q = x|y|t (Z2 = 1): D = 2 Z1, no Z product."""
+    x2, y2, t2 = q_xyt.unbind(0)
+    return _add_plain(p, x2, y2, None, t2, True)
 
 
 def ed_double_plain(p, need_t: bool = True, k: int = 1):
@@ -136,28 +153,48 @@ def pow_const_plain(x, e: int):
 # ---------------------------------------------------------------------------
 
 
-def ed_add(p: torch.Tensor, q: torch.Tensor,
-           need_t: bool = True) -> torch.Tensor:
-    """p + q for packed (4, 10, *batch) int32 points of one shape. The
-    kernel always computes T; need_t=False lets the plain version skip it."""
-    _check_point(p)
-    if p.shape != q.shape:
-        raise ValueError(f"shape mismatch {tuple(p.shape)} vs {tuple(q.shape)}")
-    if not _on_cuda(p, q):
-        return ed_add_plain(p, q, need_t)
+def _add_launch(p, q, mixed: bool, need_t: bool) -> torch.Tensor:
     w = p[0, 0].numel()
     if w == 0:
         return p
     p, q = p.contiguous(), q.contiguous()
     out = torch.empty_like(p)
     rc = build.kernels().ed_add_launch(
-        p.data_ptr(), q.data_ptr(), out.data_ptr(), w, _stream(p.device))
+        p.data_ptr(), q.data_ptr(), out.data_ptr(), int(mixed), int(need_t), w,
+        _stream(p.device))
     _raise_on(rc, "ed_add")
     ed_add.launches += 1
+    ed_add.launches_by_mode["mixed" if mixed else "full" if need_t else "need_t=False"] += 1
     return out
 
 
+def ed_add(p: torch.Tensor, q: torch.Tensor,
+           need_t: bool = True) -> torch.Tensor:
+    """p + q for packed (4, 10, *batch) int32 points of one shape; T only
+    when need_t (zeros otherwise)."""
+    _check_point(p)
+    if p.shape != q.shape:
+        raise ValueError(f"shape mismatch {tuple(p.shape)} vs {tuple(q.shape)}")
+    if not _on_cuda(p, q):
+        return ed_add_plain(p, q, need_t)
+    return _add_launch(p, q, False, need_t)
+
+
+def ed_add_mixed(p: torch.Tensor, q_xyt: torch.Tensor) -> torch.Tensor:
+    """p + q for a packed (4, 10, *batch) int32 point p and an affine
+    (3, 10, *batch) int32 q = x|y|t of the same batch; T computed."""
+    _check_point(p)
+    if q_xyt.dtype != torch.int32 or tuple(q_xyt.shape) != (3, 10) + tuple(p.shape[2:]):
+        raise ValueError(f"expected an int32 (3, 10, *batch) affine point for "
+                         f"batch {tuple(p.shape[2:])}, got {q_xyt.dtype} "
+                         f"{tuple(q_xyt.shape)}")
+    if not _on_cuda(p, q_xyt):
+        return ed_add_mixed_plain(p, q_xyt)
+    return _add_launch(p, q_xyt, True, True)
+
+
 ed_add.launches = 0
+ed_add.launches_by_mode = dict.fromkeys(("full", "need_t=False", "mixed"), 0)
 
 
 def ed_double(p: torch.Tensor, need_t: bool = True, k: int = 1) -> torch.Tensor:
@@ -226,6 +263,7 @@ WRAPPERS = (pow_const_kernel, ed_add, ed_double)
 def reset_launches():
     for w in WRAPPERS:
         w.launches = 0
+    ed_add.launches_by_mode = dict.fromkeys(ed_add.launches_by_mode, 0)
 
 
 def launches() -> dict:

@@ -77,8 +77,7 @@ def double_scalar_mul_base(s_bytes, Q: ExtPoint, k_bytes, tables: VerifyTables):
         acc = ED.double(acc, k=4)
         acc = ED.add(acc, gather_q(wq[2 * i]), need_t=False)
         acc = ED.double(acc, k=4)
-        b = tables.byte[:, :, s_bytes[31 - i].long()]       # (3, 10, B)
-        acc = ED.add_mixed(acc, b[0], b[1], b[2])
+        acc = ED.add_mixed(acc, tables.byte[:, :, s_bytes[31 - i].long()])
         acc = ED.add(acc, gather_q(wq[2 * i + 1]), need_t=False)
     return acc
 

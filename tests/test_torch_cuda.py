@@ -44,11 +44,14 @@ WIDTHS = [0, 1, 511, 512, 513, 768, 32768]
 
 def _operands(W):
     """p, q: random points with, among the lanes, the identity (p), P + P,
-    P + (-P) and the largest TIGHT limbs in every coordinate; x: random
+    P + (-P) and the largest TIGHT limbs in every coordinate; q_xyt: random
+    affine points x|y|t with the largest TIGHT limbs in lane 3; x: random
     field elements with 0 and the largest TIGHT limbs."""
     gen = torch.Generator().manual_seed(W)
     p, q = _points(gen, W), _points(gen, W)
     x = _rand_fe(gen, W)
+    k = torch.randint(0, 256, (W,), generator=gen)
+    q_xyt = tpe.VerifyTables("cpu").byte[:, :, k]
     top = torch.tensor(TIGHT, dtype=torch.int32)
     if W >= 4:
         p[:, :, 0] = torch.stack([FQ.zero((), "cpu"), FQ.one((), "cpu"),
@@ -58,21 +61,40 @@ def _operands(W):
                                   FQ.neg(p[3, :, 2])])
         p[:, :, 3] = top.view(1, 10)
         q[:, :, 3] = top.view(1, 10)
+        q_xyt[:, :, 3] = top.view(1, 10)
         x[:, 0] = 0
         x[:, 1] = top
-    return p, q, x
+    return p, q, q_xyt, x
+
+
+@pytest.mark.parametrize("mode", ["full", "need_t=False", "mixed"])
+@pytest.mark.parametrize("W", WIDTHS)
+def test_add_modes_equal_plain_versions(W, mode):
+    """ed_add with and without T, and ed_add_mixed, limb for limb; the
+    widths 0, 1, 511 and 513 leave tail lanes in a block of 32."""
+    dev = _card()
+    p, q, q_xyt, _ = _operands(W)
+    group.reset_launches()
+    if mode == "mixed":
+        got, want = group.ed_add_mixed(p.to(dev), q_xyt.to(dev)), group.ed_add_mixed_plain(p, q_xyt)
+    else:
+        need_t = mode == "full"
+        got, want = group.ed_add(p.to(dev), q.to(dev), need_t), group.ed_add_plain(p, q, need_t)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert group.ed_add.launches_by_mode == {m: int(m == mode and W > 0) for m in
+                                             ("full", "need_t=False", "mixed")}
 
 
 @pytest.mark.parametrize("W", WIDTHS)
 def test_kernels_equal_plain_versions(W):
     dev = _card()
-    p, q, x = _operands(W)
-    got = [group.ed_add(p.to(dev), q.to(dev)),
-           group.pow_const_kernel(x.to(dev), (P - 5) // 8),
+    _, _, _, x = _operands(W)
+    got = [group.pow_const_kernel(x.to(dev), (P - 5) // 8),
            group.pow_const_kernel(x.to(dev), P - 2)]
     torch.cuda.synchronize()
-    want = [group.ed_add_plain(p, q),
-            group.pow_const_plain(x, (P - 5) // 8), group.pow_const_plain(x, P - 2)]
+    want = [group.pow_const_plain(x, (P - 5) // 8), group.pow_const_plain(x, P - 2)]
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
@@ -83,7 +105,7 @@ def test_kernels_equal_plain_versions(W):
 @pytest.mark.parametrize("W", WIDTHS)
 def test_double_runs_equal_plain_versions(W, k, need_t):
     dev = _card()
-    p, _, _ = _operands(W)
+    p, _, _, _ = _operands(W)
     got = group.ed_double(p.to(dev), need_t, k)
     torch.cuda.synchronize()
     assert got.device.type == "cuda"
@@ -95,6 +117,7 @@ def test_zero_width_launches_nothing():
     group.reset_launches()
     p = torch.zeros((4, 10, 0), dtype=torch.int32, device=dev)
     assert group.ed_add(p, p) is p and group.ed_double(p) is p
+    assert group.ed_add(p, p, need_t=False) is p and group.ed_add_mixed(p, p[:3]) is p
     assert group.ed_double(p, need_t=False, k=8) is p
     x = p[0].contiguous()
     assert group.pow_const_kernel(x, 5) is x

@@ -128,17 +128,23 @@ def test_sqrt_ratio_and_sgn0_match_jax():
 
 
 def test_worst_case_limb_bounds():
-    """The overflow argument: products of the largest TIGHT inputs stay
-    below 2^63 per column, sums below 2^31, and every operation returns
+    """The overflow argument: products of the largest TIGHT inputs, and of
+    the largest uncarried (LAZY) sums, stay below 2^63 per column with
+    operands below 2^32, sums below 2^31, and every operation returns
     limbs within TIGHT with the right value."""
     assert tf.MUL_COL < 2**63
     assert max(2 * t for t in tf.TIGHT) < 2**31
     assert all(pd >= t for pd, t in zip(tf.PAD, tf.TIGHT))
+    cols, top = tf.term_columns(tf.mul_terms(), tf.LAZY, tf.LAZY)
+    assert max(cols) < 2**63 and top < 2**32 and max(tf.LAZY) < 2**31
     worst = torch.tensor(tf.TIGHT, dtype=torch.int32).view(10, 1)
     zero = torch.zeros_like(worst)
     wv = limbs_to_ints(worst, tf.WIDTHS)[0]
+    lazy = tf.FQ.sub_lazy(worst, zero)
+    assert lazy[:, 0].tolist() == tf.LAZY
     cases = {
         "mul": (tf.FQ.mul(worst, worst), wv * wv),
+        "mul_lazy": (tf.FQ.mul(lazy, tf.FQ.add_lazy(worst, worst)), 2 * wv * wv),
         "add": (tf.FQ.add(worst, worst), 2 * wv),
         "sub": (tf.FQ.sub(worst, worst), 0),
         "sub0": (tf.FQ.sub(zero, worst), -wv),

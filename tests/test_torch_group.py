@@ -108,7 +108,7 @@ def test_add_double_add_mixed_match_jax():
     aff = [(x, y, 1, x * y % P) for x, y in qs]
     ta = _port_pt(aff)
     ja = _jax_ext(aff)
-    tout = TED.add_mixed(tp, ta.x, ta.y, ta.t)
+    tout = TED.add_mixed(tp, ta.xyzt[[0, 1, 3]])
     jout = J("add_mixed", JED.add_mixed)(jp, ja.x, ja.y, ja.t)
     for a, b in zip(_canon_port(tout), _canon_jax(jout)):
         assert np.array_equal(a, b)
@@ -148,6 +148,8 @@ def test_decompress_matches_jax_with_rejections():
 
 @pytest.mark.parametrize("W", [0, 1, 511, 512, 513, 768])
 def test_plain_versions_against_ints(W):
+    """ed_add in its three modes (full, need_t=False: the same X, Y, Z and
+    T = 0, mixed with an affine q = x|y|t) and ed_double on Python ints."""
     rng = random.Random(W)
     ps = [MULT[rng.randrange(256)] for _ in range(W)]
     qs = [MULT[rng.randrange(256)] for _ in range(W)]
@@ -157,9 +159,15 @@ def test_plain_versions_against_ints(W):
         qs[2] = ((-ps[2][0]) % P, ps[2][1])
     tp, tq = _port_pt(_proj(ps, 1)), _port_pt(_proj(qs, 2))
     s = group.ed_add(tp.xyzt, tq.xyzt)
+    s_no_t = group.ed_add(tp.xyzt, tq.xyzt, need_t=False)
+    q_xyt = _port_pt([(x, y, 1, x * y % P) for x, y in qs]).xyzt[[0, 1, 3]]
+    m = group.ed_add_mixed(tp.xyzt, q_xyt)
     d = group.ed_double(tp.xyzt)
-    assert s.shape == d.shape == (4, 10, W)
-    assert _affine(ExtPoint(s)) == [CURVE.add(p, q) for p, q in zip(ps, qs)]
+    assert s.shape == s_no_t.shape == m.shape == d.shape == (4, 10, W)
+    sums = [CURVE.add(p, q) for p, q in zip(ps, qs)]
+    assert _affine(ExtPoint(s)) == sums
+    assert torch.equal(s_no_t[:3], s[:3]) and not s_no_t[3].any()
+    assert _affine(ExtPoint(m)) == sums
     assert _affine(ExtPoint(d)) == [CURVE.add(p, p) for p in ps]
 
 

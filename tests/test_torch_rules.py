@@ -69,10 +69,13 @@ def test_cpu_tensors_never_launch():
     group.reset_launches()
     p = tpe.ED.identity((3,), "cpu").xyzt
     group.ed_add(p, p)
+    group.ed_add(p, p, need_t=False)
+    group.ed_add_mixed(p, p[[0, 1, 3]])
     group.ed_double(p)
     group.pow_const_kernel(p[1], 2**255 - 21)
     tpe.verify_host([bytes(32)], [b""], [bytes(64)], device="cpu")
     assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0}
+    assert group.ed_add.launches_by_mode == {"full": 0, "need_t=False": 0, "mixed": 0}
 
 
 def test_no_kernel_for_other_devices_and_no_build_without_nvcc():
@@ -85,3 +88,16 @@ def test_no_kernel_for_other_devices_and_no_build_without_nvcc():
         pytest.skip("nvcc is present: the build can run here")
     with pytest.raises(build.BuildError):
         build.kernels()
+
+
+def test_add_mixed_checks_its_operands():
+    """ed_add_mixed takes an int32 (3, 10, *batch) q of p's batch, on p's
+    device, and raises on anything else before any launch. (One test, not
+    four: a larger count moves this file up xdist's loadfile queue, which
+    is sorted by test count, and starts the slow JAX MSM file later.)"""
+    group.reset_launches()
+    p = tpe.ED.identity((3,), "cpu").xyzt
+    for q in (p, p[[0, 1, 3], :, :2], p[[0, 1, 3]].to(torch.int64), p[[0, 1, 3]].to("meta")):
+        with pytest.raises(ValueError):
+            group.ed_add_mixed(p, q)
+    assert group.launches()["ed_add"] == 0
