@@ -1,9 +1,10 @@
 """Carry state across between the JAX package's limb formats and the port's.
 
-The JAX package stores FQ as 20 limbs of 13 bits (standard domain) and FL
-as 22 limbs of 12 bits in the Montgomery domain with R = 2^264; the port
-stores FQ as 10 limbs of radix 2^25.5 and FL as 16 limbs of 16 bits in the
-Montgomery domain with R = 2^256. Both sides are numpy/torch ``(n, B)``
+The JAX package stores FQ as 20 limbs of 13 bits (standard domain), FL as
+22 limbs of 12 bits in the Montgomery domain with R = 2^264, and FQ448
+(curve448's field) as 38 limbs of 12 bits; the port stores FQ as 10 limbs
+of radix 2^25.5, FL as 16 limbs of 16 bits in the Montgomery domain with
+R = 2^256, and FQ448 as 16 limbs of 28 bits. Both sides are numpy/torch ``(n, B)``
 int32 arrays; the conversion goes through Python ints, so it is for tests
 and one-off tables, not for a hot path.
 """
@@ -13,11 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import field448
 from .field import FL, FL_WIDTHS, FQ, L, P, R_FL, WIDTHS
+from .field448 import FQ448
 from .limbs import ints_to_limbs, limbs_to_ints
 
 JAX_FQ = (20, 13)                 # (limbs, bits)
 JAX_FL = (22, 12)
+JAX_FQ448 = (38, 12)
 R_JAX_FL = 1 << 264
 
 
@@ -28,11 +32,14 @@ def _jax_ints(arr, b: int) -> list[int]:
 
 
 def from_jax_limbs(field, arr) -> torch.Tensor:
-    """A JAX limb array (n_jax, B) of FQ or FL -> the port's (n, B) int32
-    tensor for the same field elements (canonical limbs)."""
+    """A JAX limb array (n_jax, B) of FQ, FL or FQ448 -> the port's (n, B)
+    int32 tensor for the same field elements (canonical limbs)."""
     if field is FQ:
         vals = [v % P for v in _jax_ints(arr, JAX_FQ[1])]
         return torch.from_numpy(ints_to_limbs(vals, WIDTHS))
+    if field is FQ448:
+        vals = [v % field448.P for v in _jax_ints(arr, JAX_FQ448[1])]
+        return torch.from_numpy(ints_to_limbs(vals, field448.WIDTHS))
     if field is FL:
         inv = pow(R_JAX_FL, -1, L)
         vals = [v * inv % L * R_FL % L for v in _jax_ints(arr, JAX_FL[1])]
@@ -41,11 +48,14 @@ def from_jax_limbs(field, arr) -> torch.Tensor:
 
 
 def to_jax_limbs(field, arr) -> np.ndarray:
-    """The port's (n, B) limbs of FQ or FL -> the JAX package's (n_jax, B)
-    int32 limbs of the same elements (canonical)."""
+    """The port's (n, B) limbs of FQ, FL or FQ448 -> the JAX package's
+    (n_jax, B) int32 limbs of the same elements (canonical)."""
     if field is FQ:
         vals = [v % P for v in limbs_to_ints(arr, WIDTHS)]
         return ints_to_limbs(vals, (JAX_FQ[1],) * JAX_FQ[0])
+    if field is FQ448:
+        vals = [v % field448.P for v in limbs_to_ints(arr, field448.WIDTHS)]
+        return ints_to_limbs(vals, (JAX_FQ448[1],) * JAX_FQ448[0])
     if field is FL:
         inv = pow(R_FL, -1, L)
         vals = [v * inv % L * R_JAX_FL % L for v in limbs_to_ints(arr, FL_WIDTHS)]

@@ -4,6 +4,11 @@ Counterpart of the JAX package's ``curves/edwards.py`` for edwards25519. A
 point is one packed int32 tensor ``(4, 10, *batch)`` (X|Y|Z|T over FQ).
 Every addition and doubling goes through the wrappers of ``ops/group.py``:
 the CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor.
+
+Secret-dependent work (``scalar_mul``, ``compress`` of a secret point) is
+constant-time in the data: lookups by a secret digit are masked sums over
+the whole table, selects are ``torch.where``, and no branch, index or
+shape depends on a limb value.
 """
 
 from __future__ import annotations
@@ -66,6 +71,11 @@ class EdwardsCurve:
         zero, one = f.zero(batch, device), f.one(batch, device)
         return ExtPoint(torch.stack([zero, one, one, zero]))
 
+    def generator(self, batch, device) -> ExtPoint:
+        f = self.field
+        gx, gy = f.const(self.gx, batch, device), f.const(self.gy, batch, device)
+        return ExtPoint(torch.stack([gx, gy, f.one(batch, device), f.mul(gx, gy)]))
+
     def add(self, p: ExtPoint, q: ExtPoint, need_t: bool = True) -> ExtPoint:
         return ExtPoint(group.ed_add(p.with_t(), q.with_t(), need_t), need_t)
 
@@ -94,6 +104,30 @@ class EdwardsCurve:
         ey = f.eq(f.mul(p.y, q.z), f.mul(q.y, p.z))
         return ex & ey
 
+    def on_curve(self, p: ExtPoint):
+        """(-X^2 + Y^2) Z^2 == Z^4 + d X^2 Y^2 and T Z == X Y."""
+        f = self.field
+        x2, y2, z2 = f.square(p.x), f.square(p.y), f.square(p.z)
+        lhs = f.mul(f.sub(y2, x2), z2)
+        d = f.const(self.d, x2.shape[1:], x2.device)
+        rhs = f.add(f.square(z2), f.mul(d, f.mul(x2, y2)))
+        return f.eq(lhs, rhs) & f.eq(f.mul(p.t, p.z), f.mul(p.x, p.y))
+
+    def to_affine(self, p: ExtPoint):
+        """(x, y) = (X/Z, Y/Z), one inverse (a launch of the pow kernel on
+        the card); (0, 0) for Z = 0, which no valid point has."""
+        f = self.field
+        zi = f.inverse(p.z)
+        return f.mul(p.x, zi), f.mul(p.y, zi)
+
+    def compress(self, p: ExtPoint):
+        """(32, *batch) bytes: canonical y, sgn0(x) in bit 255."""
+        f = self.field
+        ax, ay = self.to_affine(p)
+        by = f.to_bytes_le(ay)
+        top = by[-1] | (f.sgn0(ax) << 7)
+        return torch.cat([by[:-1], top[None]])
+
     def decompress(self, by):
         """(32, *batch) bytes -> (ExtPoint, valid). Rejects a non-canonical
         y, a non-square x^2, and x = 0 with the sign bit set."""
@@ -118,3 +152,24 @@ class EdwardsCurve:
         for _ in range(2, 1 << w):
             tab.append(self.add(tab[-1], p))
         return torch.stack([e.with_t() for e in tab])
+
+    @staticmethod
+    def _ct_lookup(table: torch.Tensor, idx: torch.Tensor) -> ExtPoint:
+        """table[idx] for a secret (*batch,) digit: the sum over all entries
+        of the (entries, 4, 10, *batch) table, each masked by its own
+        equality with idx, in int32. No gather: every entry is read for
+        every lane."""
+        ids = torch.arange(table.shape[0], device=table.device)
+        sel = ids.view((-1,) + (1,) * idx.dim()) == idx[None]
+        return ExtPoint(torch.where(sel[:, None, None], table, 0).sum(0, dtype=torch.int32))
+
+    def scalar_mul(self, p: ExtPoint, windows: torch.Tensor) -> ExtPoint:
+        """[k]p in constant time for (64, *batch) 4-bit digits of k, most
+        significant first: per digit one run of 4 doublings (one launch), a
+        masked lookup of [0]p .. [15]p, one full addition."""
+        table = self.window_table(p, 4)
+        acc = self.identity(p.xyzt.shape[2:], p.xyzt.device)
+        for dig in windows:
+            acc = self.double(acc, k=4)
+            acc = self.add(acc, self._ct_lookup(table, dig))
+        return acc

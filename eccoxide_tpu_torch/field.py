@@ -30,6 +30,9 @@ Overflow argument for FQ (all limbs are kept non-negative, so ``>>`` and
   each below 2^32, giving the same columns.
 - ``add`` takes limbs <= ``TIGHT``, its sums stay below 2^31 (the kernels
   add in int32).
+- ``mul_small`` multiplies TIGHT limbs by a constant up to
+  ``MUL_SMALL_MAX`` (the X25519 ladder's a24 = 121666); its carry returns
+  limbs within TIGHT.
 - ``sub`` computes ``x + PAD - y`` with ``PAD`` the limbs of 2p; every PAD
   limb dominates the TIGHT limb below it, so the difference is
   non-negative limb-wise, and below 2^31.
@@ -178,6 +181,9 @@ assert sum(t << o for t, o in zip(TIGHT, OFFS)) < 2**256
 for _terms, _bound in ((mul_terms(), LAZY), (sq_terms(), TIGHT)):
     _cols, _top = term_columns(_terms, _bound, _bound)
     assert _cols == mul_col_bounds(_bound, _bound) and _top < 2**32
+# mul_small by the X25519 ladder's a24 (or less) returns TIGHT limbs
+MUL_SMALL_MAX = 121666
+assert all(a <= t for a, t in zip(carry_bounds([MUL_SMALL_MAX * t for t in TIGHT]), TIGHT))
 
 SQRT_M1 = pow(2, (P - 1) // 4, P)
 
@@ -299,6 +305,12 @@ class Fe25519:
     def square(self, x):
         return self.mul(x, x)
 
+    def mul_small(self, x, k: int):
+        """x * k for a constant 0 <= k <= MUL_SMALL_MAX (the ladder's a24)."""
+        if not 0 <= k <= MUL_SMALL_MAX:
+            raise ValueError(f"mul_small takes 0 <= k <= {MUL_SMALL_MAX}, got {k}")
+        return _carry(x.to(torch.int64) * k)
+
     # -- canonical form / comparison ---------------------------------------
 
     def canon(self, x):
@@ -357,6 +369,10 @@ class Fe25519:
         from .ops.group import pow_const_kernel
 
         return pow_const_kernel(x, e)
+
+    def inverse(self, x):
+        """x^(p-2); 0 for 0 (one launch of the pow kernel on the card)."""
+        return self.pow_const(x, P - 2)
 
     def sqrt_ratio(self, u, v):
         """(r, ok) with r^2 == u/v where ok: r = u v^3 (u v^7)^((p-5)/8),

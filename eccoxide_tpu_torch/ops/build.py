@@ -1,7 +1,9 @@
 """Builds the port's native code on first use and loads it with ctypes.
 
-- The CUDA kernels (``csrc/group.cu``) are compiled by ``nvcc`` for
-  ``sm_90a`` into a shared library with a plain C interface.
+- The CUDA kernels are compiled by ``nvcc`` for ``sm_90a``, one shared
+  library with a plain C interface per source (``csrc/group.cu``: the
+  edwards25519 add, double and pow kernels; ``csrc/pow448.cu``: the pow
+  kernel over FQ448), every compiler started at once.
 - The host batch SHA-512 (``native/sha512.cpp`` at the repository root) is
   compiled by ``g++``.
 
@@ -25,8 +27,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = [CSRC / "group.cu"]
-KERNEL_DEPS = [CSRC / "fe25519.cuh"]
+KERNEL_SOURCES = {"group": CSRC / "group.cu", "pow448": CSRC / "pow448.cu"}
+KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"], "pow448": [CSRC / "fe448.cuh"]}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,13 +106,13 @@ class _Job:
         return Built(self.out, log, secs)
 
 
-def _kernel_job() -> _Job:
+def _kernel_job(name: str) -> _Job:
     nvcc = _nvcc()
+    src = KERNEL_SOURCES[name]
     return _Job(
-        "eccoxide_kernels",
-        lambda out: [nvcc, *NVCC_FLAGS, "-o", out,
-                     *map(str, KERNEL_SOURCES)],
-        KERNEL_SOURCES + KERNEL_DEPS, NVCC_FLAGS)
+        f"eccoxide_{name}",
+        lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)],
+        [src, *KERNEL_DEPS[name]], NVCC_FLAGS)
 
 
 def _sha512_job() -> _Job:
@@ -125,13 +127,23 @@ def _sha512_job() -> _Job:
 _libs: dict = {}
 
 
-def _bind_kernels(lib):
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ed_add_launch.argtypes = [vp, vp, vp, i32, i32, i64, vp]
-    lib.ed_double_launch.argtypes = [vp, vp, i32, i32, i64, vp]
-    lib.pow_launch.argtypes = [vp, vp, vp, i32, i64, vp]
-    for fn in (lib.ed_add_launch, lib.ed_double_launch, lib.pow_launch):
-        fn.restype = ctypes.c_int
+_vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the C entry points of each kernel library and their argument types
+_ENTRY_POINTS = {
+    "group": {"ed_add_launch": [_vp, _vp, _vp, _i32, _i32, _i64, _vp],
+              "ed_double_launch": [_vp, _vp, _i32, _i32, _i64, _vp],
+              "pow_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
+    "pow448": {"pow448_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
+}
+
+
+def _binder(name: str):
+    def bind(lib):
+        for fn_name, argtypes in _ENTRY_POINTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return bind
 
 
 def _bind_sha512(lib):
@@ -150,22 +162,25 @@ def _load(name: str, built: Built, bind):
 
 
 def build_all() -> dict:
-    """Build the kernels and the SHA-512 library, both compilers running at
-    once; load both. Returns {name: Built}."""
-    jobs = {"kernels": _kernel_job().start(), "sha512": _sha512_job().start()}
+    """Build every kernel library and the SHA-512 library, all compilers
+    running at once; load them. Returns {name: Built}, keyed by the names
+    of ``KERNEL_SOURCES`` and "sha512"."""
+    jobs = {name: _kernel_job(name).start() for name in KERNEL_SOURCES}
+    jobs["sha512"] = _sha512_job().start()
     out = {}
     for name, job in jobs.items():
         built = job.finish()
-        _load(name, built, _bind_kernels if name == "kernels" else _bind_sha512)
+        _load(name, built, _bind_sha512 if name == "sha512" else _binder(name))
         out[name] = built
     return out
 
 
-def kernels():
-    """The loaded kernel library (built on first use)."""
-    if "kernels" not in _libs:
-        _load("kernels", _kernel_job().start().finish(), _bind_kernels)
-    return _libs["kernels"]
+def kernels(name: str):
+    """The loaded kernel library ``name`` of ``KERNEL_SOURCES`` (built on
+    first use)."""
+    if name not in _libs:
+        _load(name, _kernel_job(name).start().finish(), _binder(name))
+    return _libs[name]
 
 
 def sha512_lib():

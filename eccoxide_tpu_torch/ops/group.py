@@ -1,7 +1,7 @@
 """The Edwards group-law and pow kernels, counterpart of
 the JAX package's ``ops/pallas_group.py``.
 
-Three wrappers, each with its plain PyTorch version beside it:
+The wrappers, each with its plain PyTorch version beside it:
 
 - ``ed_add(p, q, need_t)``: complete a=-1 addition (add-2008-hwcd-3); T
   (the E*H product) only when ``need_t``, zeros otherwise, on the card and
@@ -13,12 +13,15 @@ Three wrappers, each with its plain PyTorch version beside it:
   launch, X, Y, Z kept in registers between steps; T (the E*H product of
   the last step) only when ``need_t``, zeros otherwise, on the card and
   in the plain version alike;
-- ``pow_const_kernel(x, e)``: x^e over FQ for a public constant e.
+- ``pow_const_kernel(x, e)``: x^e over FQ for a public constant e;
+- ``pow448_kernel(x, e)``: the same chain over FQ448 (``field448.py``), the
+  JAX package's pow kernel instantiated for the field of curve448.
 
 Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
-``field.py``); field batches are ``(10, *batch)``. A wrapper given CPU
-tensors runs the plain version; given CUDA tensors it launches its kernel
-(``csrc/group.cu``) or raises. Each wrapper counts its launches in a plain
+``field.py``); field batches are ``(10, *batch)``, ``(16, *batch)`` for
+FQ448. A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches its kernel (``csrc/group.cu``, ``csrc/pow448.cu``) or
+raises. Each wrapper counts its launches in a plain
 integer attribute ``launches``, and ``ed_add`` splits its count by mode in
 ``ed_add.launches_by_mode``; nothing else touches the counts.
 
@@ -32,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..field import FQ, P
+from ..field448 import FQ448
 from . import build
 
 D = (-121665 * pow(121666, -1, P)) % P
@@ -131,9 +135,9 @@ def exp_digits(e: int) -> list[int]:
     return [(e >> (4 * (nd - 1 - i))) & 15 for i in range(nd)]
 
 
-def pow_const_plain(x, e: int):
-    """x^e: table x^0..x^15, then per digit 4 squarings and 1 multiply."""
-    f = FQ
+def _pow_plain(f, x, e: int):
+    """x^e over field f: table x^0..x^15, then per digit 4 squarings and 1
+    multiply (group.cu pow_kernel, pow448.cu pow448_kernel)."""
     if e == 0:
         return f.one(x.shape[1:], x.device)
     tab = [f.one(x.shape[1:], x.device), x]
@@ -148,6 +152,16 @@ def pow_const_plain(x, e: int):
     return acc
 
 
+def pow_const_plain(x, e: int):
+    """x^e over FQ, the chain of the pow kernel."""
+    return _pow_plain(FQ, x, e)
+
+
+def pow448_plain(x, e: int):
+    """x^e over FQ448, the chain of the pow448 kernel."""
+    return _pow_plain(FQ448, x, e)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -159,7 +173,7 @@ def _add_launch(p, q, mixed: bool, need_t: bool) -> torch.Tensor:
         return p
     p, q = p.contiguous(), q.contiguous()
     out = torch.empty_like(p)
-    rc = build.kernels().ed_add_launch(
+    rc = build.kernels("group").ed_add_launch(
         p.data_ptr(), q.data_ptr(), out.data_ptr(), int(mixed), int(need_t), w,
         _stream(p.device))
     _raise_on(rc, "ed_add")
@@ -209,7 +223,7 @@ def ed_double(p: torch.Tensor, need_t: bool = True, k: int = 1) -> torch.Tensor:
         return p
     p = p.contiguous()
     out = torch.empty_like(p)
-    rc = build.kernels().ed_double_launch(
+    rc = build.kernels("group").ed_double_launch(
         p.data_ptr(), out.data_ptr(), k, int(need_t), w, _stream(p.device))
     _raise_on(rc, "ed_double")
     ed_double.launches += 1
@@ -230,34 +244,49 @@ def _digits_on(e: int, device) -> torch.Tensor:
     return t
 
 
-def pow_const_kernel(x: torch.Tensor, e: int) -> torch.Tensor:
-    """x^e over FQ for an int32 (10, *batch) batch and a public e >= 0."""
-    if x.dtype != torch.int32 or x.shape[0] != 10:
-        raise ValueError(f"expected int32 (10, *batch), got {x.dtype} "
+def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper) -> torch.Tensor:
+    """x^e over field f for an int32 (f.n, *batch) batch and a public
+    e >= 0: the plain version on a CPU tensor, else one launch of the C
+    entry point ``entry`` of kernel library ``lib``."""
+    if x.dtype != torch.int32 or x.dim() < 1 or x.shape[0] != f.n:
+        raise ValueError(f"expected int32 ({f.n}, *batch), got {x.dtype} "
                          f"{tuple(x.shape)}")
     if e < 0:
         raise ValueError("negative exponent")
     if not _on_cuda(x):
-        return pow_const_plain(x, e)
+        return _pow_plain(f, x, e)
     if e == 0:
-        return FQ.one(x.shape[1:], x.device)
+        return f.one(x.shape[1:], x.device)
     w = x[0].numel()
     if w == 0:
         return x
     x = x.contiguous()
     dig = _digits_on(e, x.device)
     out = torch.empty_like(x)
-    rc = build.kernels().pow_launch(
-        x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(), w,
-        _stream(x.device))
-    _raise_on(rc, "pow_const_kernel")
-    pow_const_kernel.launches += 1
+    launch = getattr(build.kernels(lib), entry)
+    rc = launch(x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(), w,
+                _stream(x.device))
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
     return out
+
+
+def pow_const_kernel(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e over FQ for an int32 (10, *batch) batch and a public e >= 0."""
+    return _pow(FQ, x, e, "group", "pow_launch", pow_const_kernel)
 
 
 pow_const_kernel.launches = 0
 
-WRAPPERS = (pow_const_kernel, ed_add, ed_double)
+
+def pow448_kernel(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e over FQ448 for an int32 (16, *batch) batch and a public e >= 0."""
+    return _pow(FQ448, x, e, "pow448", "pow448_launch", pow448_kernel)
+
+
+pow448_kernel.launches = 0
+
+WRAPPERS = (pow_const_kernel, ed_add, ed_double, pow448_kernel)
 
 
 def reset_launches():

@@ -1,7 +1,8 @@
-"""Textbook Ed25519 on Python ints and hashlib (RFC 8032 PureEdDSA).
+"""Textbook Ed25519 (RFC 8032 PureEdDSA) and X25519/X448 (RFC 7748) on
+Python ints and hashlib.
 
-An independent signer and verifier for making and checking test vectors;
-it shares no code with the batched verifiers."""
+An independent signer, verifier and Diffie-Hellman for making and checking
+test vectors; it shares no code with the batched engines."""
 
 from __future__ import annotations
 
@@ -106,3 +107,44 @@ def verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
         return False
     k = _h(sig[:32] + pk + msg) % L
     return _mul(s, G) == _add(R, _mul(k, A))
+
+
+# ---------------------------------------------------------------------------
+# RFC 7748
+# ---------------------------------------------------------------------------
+
+P448 = 2**448 - 2**224 - 1
+
+
+def _ladder(p: int, a24: int, u: int, k: int, n_bits: int) -> int:
+    """RFC 7748 section 5 ladder (a24 = (A - 2) / 4 as the RFC has it)."""
+    x2, z2, x3, z3, swap = 1, 0, u, 1, 0
+    for t in range(n_bits - 1, -1, -1):
+        kt = (k >> t) & 1
+        if swap ^ kt:
+            x2, x3, z2, z3 = x3, x2, z3, z2
+        swap = kt
+        a, b = x2 + z2, x2 - z2
+        aa, bb = a * a % p, b * b % p
+        e = aa - bb
+        c, d = x3 + z3, x3 - z3
+        da, cb = d * a % p, c * b % p
+        x3, z3 = (da + cb) ** 2 % p, u * (da - cb) ** 2 % p
+        x2, z2 = aa * bb % p, e * (aa + a24 * e) % p
+    if swap:
+        x2, z2 = x3, z3
+    return x2 * pow(z2, p - 2, p) % p
+
+
+def x25519(scalar: bytes, u: bytes) -> bytes:
+    k = int.from_bytes(scalar, "little")
+    k = (k & ~7 & ((1 << 255) - 1)) | 1 << 254
+    uu = (int.from_bytes(u, "little") & ((1 << 255) - 1)) % P
+    return _ladder(P, 121665, uu, k, 255).to_bytes(32, "little")
+
+
+def x448(scalar: bytes, u: bytes) -> bytes:
+    k = int.from_bytes(scalar, "little")
+    k = (k & ~3) | 1 << 447
+    uu = int.from_bytes(u, "little") % P448
+    return _ladder(P448, 39081, uu, k, 448).to_bytes(56, "little")

@@ -1,10 +1,11 @@
 """Fixed-base tables of edwards25519, generated on first use from Python
-ints (``_intcurve.py``). Counterpart of the JAX package's ``params/comb.py``.
+ints (``_intcurve.py``), and the constant-time comb ``mul_base`` over them.
+Counterpart of the JAX package's ``params/comb.py``.
 
 Entries are affine points (x, y, t = xy) encoded as canonical FQ limbs of
 the port's format, int32 numpy arrays whose last axis is the 10 limbs.
 They are built in a few milliseconds and cached read-only; a caller moves
-them to its device (``protocol.ed25519.VerifyTables``).
+them to its device (``protocol.ed25519.VerifyTables``, ``SignTables``).
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-from ..curves.curve25519 import D, ED_GX, ED_GY, L, P
+from ..curves.curve25519 import D, ED_GX, ED_GY, EDWARDS, L, P
+from ..curves.edwards import ExtPoint
 from ..field import WIDTHS
 from ..limbs import int_to_limbs
 from ._intcurve import ECurve
@@ -66,3 +69,27 @@ def comb_tables():
             acc = _CURVE.add(acc, base)
         base = acc                          # [16] * window base
     return _frozen(xs, ys, ts)
+
+
+def mul_base(scalar_bytes: torch.Tensor, comb: torch.Tensor) -> ExtPoint:
+    """[s]B for (32, B) LE scalar bytes s, in constant time: 64 windows of
+    4 bits, window i (bits 4i..4i+3) adding [digit 16^i]B with one mixed
+    addition (one launch of the add kernel on the card), no doublings.
+
+    ``comb`` is ``comb_tables()`` as (64, 16, 3, 10) int32 x|y|t rows on
+    the scalar's device. The digit is secret: each window's entry is the
+    sum of all 16 entries, each masked by its own equality with the digit,
+    in int32 (never a gather, and never a float product, which would round
+    limbs). Entry 0 is the affine identity (0, 1, 0), which the complete
+    mixed addition absorbs."""
+    B = scalar_bytes.shape[1]
+    dev = scalar_bytes.device
+    nib = torch.arange(N_WINDOWS, device=dev)
+    digits = (scalar_bytes[nib // 2] >> (4 * (nib % 2))[:, None]) & 0xF   # (64, B)
+    ids = torch.arange(16, device=dev).view(16, 1, 1, 1)
+    acc = EDWARDS.identity((B,), dev)
+    for i in range(N_WINDOWS):
+        sel = ids == digits[i]                                     # (16, 1, 1, B)
+        q = torch.where(sel, comb[i, :, :, :, None], 0).sum(0, dtype=torch.int32)
+        acc = EDWARDS.add_mixed(acc, q)
+    return acc

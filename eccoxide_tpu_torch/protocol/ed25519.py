@@ -1,11 +1,13 @@
-"""Ed25519 verification (RFC 8032 PureEdDSA), batched: the per-signature
-Straus verifier. Counterpart of the verify side of
-the JAX package's ``protocol/ed25519.py``.
+"""Ed25519 (RFC 8032 PureEdDSA), batched: key generation and signing on
+the constant-time comb, and the per-signature Straus verifier.
+Counterpart of the JAX package's ``protocol/ed25519.py``.
 
 SHA-512 runs on the host (``ops/sha512.py``); the curve and scalar
 arithmetic runs batched on the device the caller names. Device functions
 take byte columns, int32 ``(32, B)`` and ``(64, B)``, the JAX package's
-layout; host functions take Python bytes.
+layout; host functions take Python bytes. Signing hashes in three passes,
+as the JAX package does: the secret keys, then prefix || M (for r), then
+R || A || M (for k).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from ..curves.curve25519 import EDWARDS as ED
 from ..curves.curve25519 import FL
 from ..curves.edwards import ExtPoint
 from ..ops.sha512 import sha512_batch
-from ..params.comb import comb_tables, edwards_byte_table
+from ..params.comb import comb_tables, edwards_byte_table, mul_base
 
 
 def resolve_device(device) -> torch.device:
@@ -45,6 +47,25 @@ class VerifyTables:
         byte = np.stack(edwards_byte_table()).transpose(0, 2, 1)
         self.byte = torch.from_numpy(np.ascontiguousarray(byte)).to(self.device)
         self.comb = torch.from_numpy(np.stack(comb_tables())).to(self.device)
+
+
+class SignTables:
+    """The signer's table on one device: ``comb``, [j 16^i]B as
+    (64, 16, 3, 10) int32 (window, entry, x|y|t, limbs), the layout
+    ``params.comb.mul_base`` selects from."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        comb = np.ascontiguousarray(np.stack(comb_tables(), axis=2))
+        self.comb = torch.from_numpy(comb).to(self.device)
+
+
+def clamp_scalar_bytes(h: np.ndarray) -> np.ndarray:
+    """RFC 8032 secret-scalar clamp on (32, B) byte columns."""
+    h = h.copy()
+    h[0] &= 0xF8
+    h[31] = (h[31] & 0x7F) | 0x40
+    return h
 
 
 def windows_from_bytes_le(by, n_windows: int):
@@ -82,6 +103,38 @@ def double_scalar_mul_base(s_bytes, Q: ExtPoint, k_bytes, tables: VerifyTables):
     return acc
 
 
+def scalar_mul_base(scalar_bytes, tables: SignTables) -> ExtPoint:
+    """[s]B for (32, B) LE scalar bytes (the constant-time comb)."""
+    return mul_base(scalar_bytes, tables.comb)
+
+
+def scalar_mul(point: ExtPoint, scalar_bytes) -> ExtPoint:
+    """[s]P for (32, B) LE scalar bytes (constant-time windows)."""
+    return ED.scalar_mul(point, windows_from_bytes_le(scalar_bytes, 64))
+
+
+def sign_core(a_clamped_bytes, r_wide_bytes, k_wide_bytes):
+    """S = r + k a mod l as (32, B) bytes, for the clamped secret scalar a
+    (32, B), r_wide = H(prefix || M) and k_wide = H(R || A || M) (64, B).
+    The clamped a can be >= l, so it is reduced as a wide value."""
+    r = FL.from_wide_bytes_le(r_wide_bytes)
+    k = FL.from_wide_bytes_le(k_wide_bytes)
+    a = FL.from_wide_bytes_le(a_clamped_bytes)
+    return FL.to_bytes_le(FL.add(r, FL.mul(k, a)))
+
+
+def r_point_core(r_wide_bytes, tables: SignTables):
+    """R = [r]B compressed (32, B), r = r_wide mod l."""
+    r_bytes = FL.to_bytes_le(FL.from_wide_bytes_le(r_wide_bytes))
+    return ED.compress(scalar_mul_base(r_bytes, tables))
+
+
+def public_key_core(a_clamped_bytes, tables: SignTables):
+    """A = [a]B compressed (32, B)."""
+    a_bytes = FL.to_bytes_le(FL.from_wide_bytes_le(a_clamped_bytes))
+    return ED.compress(scalar_mul_base(a_bytes, tables))
+
+
 def verify_core(pk_bytes, r_bytes, s_bytes, k_wide_bytes, tables: VerifyTables):
     """(B,) bool: [S]B - [k]A == R, with A and R decodable and canonical and
     S < l. k_wide is H(R || A || M) as (64, B) bytes."""
@@ -106,6 +159,12 @@ def cols(bs: list[bytes], width: int, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a.T).astype(np.int32)).to(device)
 
 
+def rows(by: torch.Tensor) -> list[bytes]:
+    """(width, B) byte columns -> B byte strings."""
+    a = by.cpu().numpy().astype(np.uint8).T
+    return [r.tobytes() for r in a]
+
+
 def host_inputs(pks, msgs, sigs, device):
     """Byte columns (pk, R, S, H(R || A || M)) on ``device``."""
     if not len(pks) == len(msgs) == len(sigs):
@@ -124,3 +183,50 @@ def verify_host(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],
     tables = tables if tables is not None else VerifyTables(dev)
     ok = verify_core(*host_inputs(pks, msgs, sigs, dev), tables)
     return ok.cpu().tolist()
+
+
+def expand_secret_host(sks: list[bytes]):
+    """B secret keys -> (clamped scalar columns (32, B) int32 numpy, the B
+    32-byte prefixes)."""
+    if any(len(sk) != 32 for sk in sks):
+        raise ValueError("every secret key must be 32 bytes")
+    h = sha512_batch(sks)                                   # (64, B) int32
+    prefixes = [r.tobytes() for r in h[32:].astype(np.uint8).T]
+    return clamp_scalar_bytes(h[:32]), prefixes
+
+
+def public_keys_host(sks: list[bytes], device="cuda",
+                     tables: SignTables | None = None) -> list[bytes]:
+    """The B public keys of B secret keys, on ``device``."""
+    dev = resolve_device(device)
+    tables = tables if tables is not None else SignTables(dev)
+    a, _ = expand_secret_host(sks)
+    return rows(public_key_core(torch.from_numpy(a).to(dev), tables))
+
+
+def sign_with_expanded_host(a, prefixes, pks, msgs, device="cuda",
+                            tables: SignTables | None = None) -> list[bytes]:
+    """Sign with expanded secrets (the cached keypair's path): a = clamped
+    scalar columns (32, B), prefixes and public keys as byte lists."""
+    if not len(prefixes) == len(pks) == len(msgs) == a.shape[1]:
+        raise ValueError("a, prefixes, pks and msgs differ in length")
+    dev = resolve_device(device)
+    tables = tables if tables is not None else SignTables(dev)
+    r_wide = torch.from_numpy(sha512_batch([p + m for p, m in zip(prefixes, msgs)])).to(dev)
+    R = rows(r_point_core(r_wide, tables))
+    k_wide = sha512_batch([r + pk + m for r, pk, m in zip(R, pks, msgs)])
+    S = rows(sign_core(torch.from_numpy(a).to(dev), r_wide, torch.from_numpy(k_wide).to(dev)))
+    return [r + s for r, s in zip(R, S)]
+
+
+def sign_host(sks: list[bytes], msgs: list[bytes], device="cuda",
+              tables: SignTables | None = None) -> list[bytes]:
+    """B signatures of B messages under B secret keys, on ``device``. A is
+    computed anew from each key, as the JAX package does."""
+    if len(sks) != len(msgs):
+        raise ValueError("sks and msgs differ in length")
+    dev = resolve_device(device)
+    tables = tables if tables is not None else SignTables(dev)
+    a, prefixes = expand_secret_host(sks)
+    pks = public_keys_host(sks, dev, tables)
+    return sign_with_expanded_host(a, prefixes, pks, msgs, dev, tables)

@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from eccoxide_tpu_torch import oracle
+from eccoxide_tpu_torch import field448, oracle
 from eccoxide_tpu_torch.field import FQ, P, TIGHT
 from eccoxide_tpu_torch.ops import group
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
+from eccoxide_tpu_torch.protocol import x448 as tx448
+from eccoxide_tpu_torch.protocol import x25519 as tx25519
 
 pytestmark = pytest.mark.cuda
 
@@ -87,14 +89,31 @@ def test_add_modes_equal_plain_versions(W, mode):
                                              ("full", "need_t=False", "mixed")}
 
 
+def _fe448(W):
+    """Random FQ448 limbs within TIGHT, with 0 and the largest TIGHT limbs."""
+    gen = torch.Generator().manual_seed(W + 448)
+    top = torch.tensor(field448.TIGHT).view(16, 1)
+    x = (torch.randint(0, 1 << 62, (16, W), generator=gen) % (top + 1)).to(torch.int32)
+    if W >= 4:
+        x[:, 0] = 0
+        x[:, 1] = top[:, 0]
+    return x
+
+
 @pytest.mark.parametrize("W", WIDTHS)
 def test_kernels_equal_plain_versions(W):
+    """Both pow kernels: FQ at (p-5)/8 and p-2, FQ448 at p-2 and a short
+    exponent."""
     dev = _card()
     _, _, _, x = _operands(W)
+    y = _fe448(W)
+    p448 = field448.P
     got = [group.pow_const_kernel(x.to(dev), (P - 5) // 8),
-           group.pow_const_kernel(x.to(dev), P - 2)]
+           group.pow_const_kernel(x.to(dev), P - 2),
+           group.pow448_kernel(y.to(dev), p448 - 2), group.pow448_kernel(y.to(dev), 0x1234)]
     torch.cuda.synchronize()
-    want = [group.pow_const_plain(x, (P - 5) // 8), group.pow_const_plain(x, P - 2)]
+    want = [group.pow_const_plain(x, (P - 5) // 8), group.pow_const_plain(x, P - 2),
+            group.pow448_plain(y, p448 - 2), group.pow448_plain(y, 0x1234)]
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
@@ -121,7 +140,10 @@ def test_zero_width_launches_nothing():
     assert group.ed_double(p, need_t=False, k=8) is p
     x = p[0].contiguous()
     assert group.pow_const_kernel(x, 5) is x
-    assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0}
+    y = torch.zeros((16, 0), dtype=torch.int32, device=dev)
+    assert group.pow448_kernel(y, 5) is y
+    assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0,
+                                "pow448_kernel": 0}
 
 
 def test_verifiers_on_the_card_match_the_cpu():
@@ -135,6 +157,31 @@ def test_verifiers_on_the_card_match_the_cpu():
     group.reset_launches()
     on_card = tpe.verify_host(pks, msgs, sigs)
     batch = tpb.verify_batch_host(pks, msgs, sigs, rng=np.random.default_rng(3))
-    assert min(group.launches().values()) > 0
+    counts = group.launches()
+    assert min(counts[k] for k in ("pow_const_kernel", "ed_add", "ed_double")) > 0
+    assert counts["pow448_kernel"] == 0
     cpu = tpe.verify_host(pks, msgs, sigs, device="cpu")
     assert on_card == batch == cpu == [True, True, False, True, True, True]
+
+
+def test_sign_and_ladders_on_the_card_match_the_cpu():
+    """sign_host, x25519 and x448 on the card equal the CPU's, with the
+    launches the paths must make: a sign_host call 128 mixed adds and 2
+    pows, a ladder 1 pow of its field."""
+    _card()
+    rng = random.Random(10)
+    sks = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(3)]
+    msgs = [b"", b"m", bytes(200)]
+    group.reset_launches()
+    sigs = tpe.sign_host(sks, msgs)
+    assert group.launches() == {"pow_const_kernel": 2, "ed_add": 128, "ed_double": 0,
+                                "pow448_kernel": 0}
+    assert group.ed_add.launches_by_mode["mixed"] == 128
+    assert sigs == tpe.sign_host(sks, msgs, device="cpu")
+    s32 = bytes(rng.randrange(256) for _ in range(32))
+    s56 = bytes(rng.randrange(256) for _ in range(56))
+    group.reset_launches()
+    card = (tx25519.x25519_base_host(s32), tx448.x448_base_host(s56))
+    assert group.launches()["pow_const_kernel"] == 1 and group.launches()["pow448_kernel"] == 1
+    assert card == (tx25519.x25519_base_host(s32, device="cpu"),
+                    tx448.x448_base_host(s56, device="cpu"))

@@ -1,9 +1,8 @@
-"""The port's slice as a whole: verify_host (Straus) and verify_batch_host
-(RLC with its per-signature fallback) on the CPU, against the JAX package's
-integer oracle, RFC 8032 vectors, and the JAX package's own verify_host and
-verify_batch_host on the same batch with the same numpy generator for z.
-The JAX verify_batch_host comparison is under -m slow: its graphs take
-nearly four minutes to compile on the CPU."""
+"""The port's verify side as a whole: verify_host (Straus) and
+verify_batch_host (RLC with its per-signature fallback) on the CPU, against
+the JAX package's integer oracle and RFC 8032 vectors. The comparisons with
+the JAX package's own verifiers, which compile its graphs, are in
+test_torch_parity_verify.py."""
 
 import hashlib
 import random
@@ -42,15 +41,6 @@ def batch():
     expected = [jorc.verify(pk, m, s) for pk, m, s in zip(pks, msgs, sigs)]
     assert expected == [c == "valid" for c in CASES]
     return pks, msgs, sigs, expected
-
-
-@pytest.fixture(scope="module")
-def jax_verify_host(batch):
-    """The JAX package's verify_host on the same batch, computed once."""
-    from eccoxide_tpu.protocol import ed25519 as jpe
-
-    pks, msgs, sigs, _ = batch
-    return jpe.verify_host(pks, msgs, sigs)
 
 
 def test_verify_host_matches_oracle(batch):
@@ -120,20 +110,3 @@ def test_sha512_batch_matches_hashlib():
         hashlib.sha512(m).digest() for m in msgs]
     assert hasher() in ("openssl libcrypto.so.3", "openssl libcrypto.so.1.1",
                         "portable")
-
-
-def test_verify_host_identical_to_jax(batch, jax_verify_host):
-    pks, msgs, sigs, expected = batch
-    assert tpe.verify_host(pks, msgs, sigs, device="cpu") == jax_verify_host
-    assert jax_verify_host == expected
-
-
-@pytest.mark.slow
-def test_verify_batch_host_identical_to_jax(batch):
-    from eccoxide_tpu.protocol import ed25519_batch as jpb
-
-    pks, msgs, sigs, _ = batch
-    want = jpb.verify_batch_host(pks, msgs, sigs, rng=np.random.default_rng(5))
-    got = tpb.verify_batch_host(pks, msgs, sigs, rng=np.random.default_rng(5),
-                                device="cpu")
-    assert got == want

@@ -1,19 +1,15 @@
 """The port's window-stacked Pippenger MSM (parallel/msm.py) against Python
-ints and against the JAX package's msm_multi_prefix (ops=None), with c=4
-and two terms of different scalar lengths (the RLC verifier's shape: 32-byte
-z*k beside 16-byte z). The JAX comparison uses 8- and 4-byte scalars: its
-graph unrolls one Horner step per window, and at 32 bytes it takes over a
-minute to compile on the CPU."""
+ints, with c=4 and two terms of different scalar lengths (the RLC
+verifier's shape: 32-byte z*k beside 16-byte z), and its digit helpers
+against the JAX package's. The comparison with the JAX package's
+msm_multi_prefix is in test_torch_parity_msm.py."""
 
 import random
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from eccoxide_tpu.curves import curve25519 as jc
-from eccoxide_tpu.curves.edwards import ExtPoint as JExt
 from eccoxide_tpu.oracle.curve import ECurve
 from eccoxide_tpu.parallel import msm as jmsm
 from eccoxide_tpu_torch.curves import curve25519 as tc
@@ -67,21 +63,6 @@ def test_msm_multi_prefix_against_ints(B):
     X, Y, Z, T = (limbs_to_ints(c, WIDTHS)[0] for c in out.xyzt.unbind(0))
     assert T * Z % P == X * Y % P
     assert _affine_ints(X, Y, Z) == exp
-
-
-def test_msm_multi_prefix_matches_jax():
-    """B=5 (not a power of two: identity padding to 8)."""
-    coords, by1, by2, exp = _case(5, seed=11)
-    cols = [ints_to_limbs([c[i] for c in coords], WIDTHS) for i in range(4)]
-    pts = ExtPoint(torch.from_numpy(np.stack(cols)))
-    out = tmsm.msm_multi_prefix(
-        tc.EDWARDS, [(pts, torch.from_numpy(by1)), (pts, torch.from_numpy(by2))], c=4)
-    jpts = JExt(*(jc.FQ.encode_ints([c[i] for c in coords]) for i in range(4)))
-    jout = jax.jit(lambda p, a, b: jmsm.msm_multi_prefix(
-        jc.EDWARDS, [(p, a), (p, b)], c=4, ops=None))(jpts, by1, by2)
-    jX, jY, jZ = (jc.FQ.decode_ints(c)[0] for c in (jout.x, jout.y, jout.z))
-    X, Y, Z = (limbs_to_ints(c, WIDTHS)[0] for c in out.xyzt.unbind(0)[:3])
-    assert _affine_ints(X, Y, Z) == _affine_ints(jX, jY, jZ) == exp
 
 
 def test_window_digits_and_rev_bits():

@@ -12,9 +12,13 @@ import sys
 import pytest
 import torch
 
+from eccoxide_tpu_torch.field448 import FQ448
 from eccoxide_tpu_torch.ops import build, group
+from eccoxide_tpu_torch.protocol import api
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
+from eccoxide_tpu_torch.protocol import x448 as tx448
+from eccoxide_tpu_torch.protocol import x25519 as tx25519
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "eccoxide_tpu_torch"
@@ -57,12 +61,22 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     pk, sig = bytes(32), bytes(64)
-    with pytest.raises(RuntimeError):
-        tpe.verify_host([pk], [b""], [sig])
-    with pytest.raises(RuntimeError):
-        tpb.verify_batch_host([pk], [b""], [sig])
-    with pytest.raises(RuntimeError):
-        tpe.VerifyTables()
+    calls = [
+        lambda: tpe.verify_host([pk], [b""], [sig]),
+        lambda: tpb.verify_batch_host([pk], [b""], [sig]),
+        tpe.VerifyTables, tpe.SignTables,
+        lambda: tpe.public_keys_host([pk]),
+        lambda: tpe.sign_host([pk], [b""]),
+        lambda: tx25519.x25519_host(pk, pk), lambda: tx25519.x25519_base_host(pk),
+        lambda: tx448.x448_host(bytes(56), bytes(56)), lambda: tx448.x448_base_host(bytes(56)),
+        lambda: api.X25519SecretKey(pk).public_key(),
+        lambda: api.X448SecretKey(bytes(56)).public_key(),
+        lambda: api.Ed25519SecretKey(pk).sign(b""),
+        lambda: api.Ed25519Keypair(pk),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call()
 
 
 def test_cpu_tensors_never_launch():
@@ -73,8 +87,10 @@ def test_cpu_tensors_never_launch():
     group.ed_add_mixed(p, p[[0, 1, 3]])
     group.ed_double(p)
     group.pow_const_kernel(p[1], 2**255 - 21)
+    group.pow448_kernel(FQ448.one((3,), "cpu"), FQ448.p - 2)
     tpe.verify_host([bytes(32)], [b""], [bytes(64)], device="cpu")
-    assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0}
+    assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0,
+                                "pow448_kernel": 0}
     assert group.ed_add.launches_by_mode == {"full": 0, "need_t=False": 0, "mixed": 0}
 
 
@@ -84,10 +100,13 @@ def test_no_kernel_for_other_devices_and_no_build_without_nvcc():
         group.ed_add(p, p)
     with pytest.raises(ValueError):
         group.ed_add(p.to(torch.int64), p.to(torch.int64))
+    with pytest.raises(ValueError):
+        group.pow448_kernel(p[0, :, :].repeat(2, 1)[:16], 5)
     if shutil.which("nvcc") or torch.cuda.is_available():
         pytest.skip("nvcc is present: the build can run here")
-    with pytest.raises(build.BuildError):
-        build.kernels()
+    for name in build.KERNEL_SOURCES:
+        with pytest.raises(build.BuildError):
+            build.kernels(name)
 
 
 def test_add_mixed_checks_its_operands():
