@@ -1,18 +1,23 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: Ed25519 verification,
-key generation and signing, X25519 and X448.
+key generation and signing, X25519 and X448, and the 15 SEC2 curves.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from eccoxide_tpu_torch/ops/csrc/, holds
 each kernel against its plain PyTorch version on the card (``ed_add`` in
 its three modes: full, ``need_t=False`` and mixed; the pow kernels over
-2^255-19 and over p448), runs both verifiers at B=32768 (the
+2^255-19, over p448 and over the 15 SEC2 primes), runs both verifiers at
+B=32768 (the
 per-signature Straus verifier through ``verify_host`` and the RLC batch
 verifier through ``verify_batch_host``) on signatures made by the port's
 integer oracle, then at B=32768 key generation and signing
 (``public_keys_host``, ``sign_host``, every signature verified) and the
 X25519 and X448 exchanges (both ways, RFC 7748 vectors and low-order u in
-fixed lanes). It counts the kernel launches of each path, with the counts
+fixed lanes), P-256 and secp256k1 key generation and ECDH at B=32768
+(comb ``mul_base`` and SEC1 ``compress``; ``decompress``, CT
+``scalar_mul``, ``to_affine``; both ways, NIST or sage KATs, bad
+encodings in fixed lanes) and the other 13 SEC2 curves at B=256 against
+the integer oracle. It counts the kernel launches of each path, with the counts
 set to 0 just before it, and times kernels, plain versions and paths. A kernel's time is device time per launch from a
 CUDA graph of wrapper calls replayed between CUDA events, printed beside
 the host's time per wrapper call and held against the profiler's per-launch
@@ -53,6 +58,15 @@ INT32_MAD_PER_CLK_PER_SM = 64
 GRAPH_LAUNCHES = 20      # wrapper calls captured in one CUDA graph
 GRAPH_REPLAYS = 10
 E_SHORT = 0x1234         # a short public exponent for the pow kernels' checks
+# (first lane, width) of the SEC2 pow kernel's checks: widths 0, 1 (the
+# largest limbs, then a random lane), 127, 128, 129 and B
+SEC2_CHECK_LANES = ((0, 0), (0, 1), (1, 1), (0, 127), (0, 128), (0, 129), (0, B))
+
+
+def sec2_exponents(f) -> dict:
+    """The exponents of the SEC2 path (``Field.path_exponents``), a short
+    one and 0."""
+    return {**f.path_exponents(), hex(E_SHORT): E_SHORT, "0": 0}
 
 
 T_START = time.perf_counter()
@@ -182,7 +196,13 @@ X25519_LOW_ORDER = [v.to_bytes(32, "little") for v in (
     _P25519 - 1, _P25519, _P25519 + 1, 2**255 + 1)]
 X448_LOW_ORDER = [v.to_bytes(56, "little") for v in (0, 1, _P448 - 1, _P448, _P448 + 1)]
 
-PORT_KERNELS = ("ed_add_kernel", "ed_double_kernel", "pow_kernel", "pow448_kernel")
+PORT_KERNELS = ("ed_add_kernel", "ed_double_kernel", "pow_kernel", "pow448_kernel",
+                "pow_sec2_kernel")
+# a kernel's name in ptxas and SASS listings: the pow_sec2 instances are
+# told apart by their limb count (template argument ILi<n>E)
+_KERNEL_RE = "(" + "|".join(PORT_KERNELS) + r")(?:ILi(\d+)E)?"
+SEC2_PATH_B = 256        # lanes of the 13 other SEC2 curves
+SEC2_ORACLE_LANES = 16
 SASS_OPS = ("IMAD.WIDE", "IMAD", "SHF", "IADD3", "LDL", "STL")
 
 
@@ -201,8 +221,8 @@ def sass_counts(lib_paths) -> dict:
     counts, cur = {}, None
     for line in out.splitlines():
         if "Function : " in line:
-            m = re.search(r"Function : .*?(" + "|".join(PORT_KERNELS) + ")", line)
-            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS + ("all",), 0)) if m else None
+            m = re.search(r"Function : .*?" + _KERNEL_RE, line)
+            cur = counts.setdefault(_kernel_key(m), dict.fromkeys(SASS_OPS + ("all",), 0)) if m else None
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and cur is not None:
@@ -215,6 +235,10 @@ def sass_counts(lib_paths) -> dict:
                     if op == name or op.startswith(name + "."):
                         cur[name] += 1
     return counts
+
+
+def _kernel_key(m) -> str:
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
 
 def device_profile(fn) -> dict:
@@ -254,9 +278,9 @@ def ptxas_report(log: str) -> dict:
     "stack_bytes": b}} from an `nvcc -Xptxas -v` log."""
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(" + "|".join(PORT_KERNELS) + ")", line)
+        m = re.search(r"Compiling entry function '.*?" + _KERNEL_RE, line)
         if m:
-            cur = m.group(1)
+            cur = _kernel_key(m)
             out[cur] = {}
             continue
         if cur is None:
@@ -275,10 +299,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.join(root, "tests"))
     import numpy as np
+    from kats_nist import KATS
+    from kats_sage_p256k1 import SAGE_P256K1
 
     from eccoxide_tpu_torch import field448, oracle
+    from eccoxide_tpu_torch.curves import sec2
+    from eccoxide_tpu_torch.limbs import windows_from_bytes_le
+    from eccoxide_tpu_torch.params.comb import get_weierstrass_comb
     from eccoxide_tpu_torch.field import FQ, P, TIGHT
     from eccoxide_tpu_torch.field448 import FQ448
     from eccoxide_tpu_torch.ops import build, group, sha512
@@ -302,7 +333,9 @@ def main() -> int:
     regs = {}
     for lib in libs.values():
         regs.update(ptxas_report(lib.log))
-    if set(regs) != set(PORT_KERNELS):
+    want_regs = set(PORT_KERNELS) - {"pow_sec2_kernel"} | {
+        f"pow_sec2_kernel<{n}>" for n in build.POW_SEC2_LIMBS}
+    if set(regs) != want_regs:
         raise RuntimeError(f"ptxas report lacks kernels: {regs}")
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "nvcc": nvcc_version,
@@ -367,7 +400,7 @@ def main() -> int:
                "plain_ms": events_ms(p_fn, 3),
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+               "madds_per_lane": ops, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         torch.cuda.synchronize()
         return row
 
@@ -381,14 +414,17 @@ def main() -> int:
             k_fn, p_fn = (lambda: group.ed_add(p, q, need_t)), (lambda: group.ed_add_plain(p, q, need_t))
         return ("ed_add", {"W": W, "mode": mode}, *ADD_COST[mode], k_fn, p_fn)
 
-    checks = {"ed_add": [], "ed_double": [], "pow_const_kernel": [], "pow448_kernel": []}
+    checks = {"ed_add": [], "ed_double": [], "pow_const_kernel": [], "pow448_kernel": [],
+              "pow_sec2_kernel": []}
     max_err = {name: 0 for name in checks}
 
-    def compare(name, got, want, width, case):
+    def compare(name, got, want, width, case, canon=None):
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise RuntimeError(f"{name} {case}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        if name == "pow_const_kernel":
+        if canon is not None:
+            cg, cw = canon(got), canon(want)
+        elif name == "pow_const_kernel":
             cg, cw = FQ.canon(got), FQ.canon(want)
         elif name == "pow448_kernel":
             cg, cw = FQ448.canon(got), FQ448.canon(want)
@@ -444,6 +480,21 @@ def main() -> int:
                     compare("pow448_kernel", group.pow448_kernel(inp, e),
                             group.pow448_plain(inp, e), W, f"{kind} e={tag}")
         torch.cuda.synchronize()
+    # the SEC2 pow kernel, every field: one plain call at W = B per exponent,
+    # the kernel at each check width on a prefix (lanes are independent);
+    # lane 0 holds the largest limbs the format allows, lane 2 zero
+    for name in sec2.ALL:
+        f = sec2.get_curve(name).field
+        top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
+        x = (torch.randint(0, 1 << 62, (f.n, B), generator=gen, device=dev)
+             % (top.view(-1, 1) + 1)).to(torch.int32)
+        x[:, 0] = top.to(torch.int32)
+        x[:, 2] = 0
+        for tag, e in sec2_exponents(f).items():
+            want = group.pow_sec2_plain(f, x, e)
+            for first, W in SEC2_CHECK_LANES:
+                compare("pow_sec2_kernel", group.pow_sec2_kernel(f, x[:, first:first + W].contiguous(), e),
+                        want[:, first:first + W], W, f"{name} e={tag} lanes {first}..", f.canon)
     emit({"phase": "kernels_vs_plain", "tolerance": "exact on canonical limbs",
           "max_abs_err": max_err,
           "checks": {k: len(v) for k, v in checks.items()},
@@ -640,19 +691,161 @@ def main() -> int:
     x448_in = ladder_phase("x448", px448, 56, oracle.x448, X448_VECTORS,
                            X448_LOW_ORDER, "pow448_kernel")
 
+    # -- phases 8 and 9: the SEC2 curves ----------------------------------------
+    def scalar_cols(spec, ks):
+        """(scalar n_bytes, B) LE byte columns of ints ks, on the card."""
+        nb = spec.scalar.n_bytes
+        raw = np.frombuffer(b"".join(k.to_bytes(nb, "little") for k in ks), np.uint8)
+        return torch.from_numpy(raw.reshape(len(ks), nb).T.astype(np.int32)).to(dev)
+
+    def windows_from(spec, sb):
+        return windows_from_bytes_le(sb, -(-spec.scalar.bits // 4))
+
+    def distinct_scalars(o, n, rng_):
+        ks = list(dict.fromkeys(int.from_bytes(rng_.bytes(o.n_bytes + 8), "big") % (o.order - 1) + 1
+                                for _ in range(n + 16)))[:n]
+        if len(ks) != n:
+            raise RuntimeError("scalars are not distinct")
+        return ks
+
+    def col_rows(t):
+        return [bytes(r) for r in t.T.cpu().tolist()]
+
+    sec2_kats = {"p256r1": [(int(k, 16), (int(x, 16), int(y, 16))) for k, x, y in KATS["p256r1"]],
+                 "p256k1": [(k, (int(x, 16), int(y, 16))) for k, x, y in SAGE_P256K1]}
+    sec2_times, sec2_cores = {}, {}
+
+    def sec2_full_width(name):
+        """Key generation (mul_base, compress) and ECDH both ways (decompress
+        of the peer's key, CT scalar_mul, to_affine, x big-endian) at B.
+        Lane 0 and lanes 4.. of a hold the KAT scalars; the key a is given
+        in lanes 1, 2, 3 is x = p, an x off the curve, and tag 4."""
+        spec, o = sec2.get_curve(name), oracle.sec2_curve(name)
+        f, nb = spec.field, spec.field.n_bytes
+        rng_ = np.random.default_rng(len(name) * 1000 + 256)
+        kats = sec2_kats[name]
+        ka, kb = distinct_scalars(o, B, rng_), distinct_scalars(o, B, rng_)
+        kat_lanes = [0] + list(range(4, 4 + len(kats) - 1))
+        for j, (k, _) in zip(kat_lanes, kats):
+            ka[j] = k
+        sa, sb_ = scalar_cols(spec, ka), scalar_cols(spec, kb)
+        wa, wb = windows_from(spec, sa), windows_from(spec, sb_)
+        tables = get_weierstrass_comb(spec).tables(dev)
+
+        def keygen(sc):
+            return spec.compress(spec.mul_base(sc, tables))
+
+        def exchange(wins, peer):
+            Q, ok = spec.decompress(peer)
+            sx, _ = spec.to_affine(spec.scalar_mul(Q, wins))
+            return f.to_bytes_be(sx), ok
+
+        pub_a, keygen_s = counted(f"{name}_keygen(a)", lambda: keygen(sa), {"pow_sec2_kernel": 1})
+        pub_b, _ = counted(f"{name}_keygen(b)", lambda: keygen(sb_), {"pow_sec2_kernel": 1})
+        x_off = next(x for x in range(2, 1000)
+                     if o.decompress(bytes([2]) + x.to_bytes(nb, "big")) is None)
+        bad = {1: bytes([2]) + o.p.to_bytes(nb, "big"), 2: bytes([2]) + x_off.to_bytes(nb, "big"),
+               3: bytes([4]) + col_rows(pub_b[:, 3:4])[0][1:]}
+        peer_for_a = pub_b.clone()
+        for j, enc in bad.items():
+            peer_for_a[:, j] = torch.tensor(list(enc), dtype=torch.int32, device=dev)
+        (s_ab, ok_ab), exch_s = counted(f"{name}_ecdh(a)", lambda: exchange(wa, peer_for_a),
+                                        {"pow_sec2_kernel": 2})
+        (s_ba, ok_ba), _ = counted(f"{name}_ecdh(b)", lambda: exchange(wb, pub_a),
+                                   {"pow_sec2_kernel": 2})
+        ok_ab, ok_ba = ok_ab.cpu().tolist(), ok_ba.cpu().tolist()
+        if [j for j in range(B) if not ok_ab[j]] != sorted(bad) or not all(ok_ba):
+            raise RuntimeError(f"{name}: decompress accepted a bad key or refused a good one")
+        rows = {"pub_a": col_rows(pub_a), "pub_b": col_rows(pub_b),
+                "s_ab": col_rows(s_ab), "s_ba": col_rows(s_ba)}
+        agree = sum(rows["s_ab"][j] == rows["s_ba"][j] for j in range(B) if j not in bad)
+        if agree != B - len(bad):
+            raise RuntimeError(f"{name}: {B - len(bad) - agree} exchanges disagree")
+        kat_ok = all(rows["pub_a"][j] == o.compress(pt) for j, (_, pt) in zip(kat_lanes, kats))
+        lanes_ = [0, B - 1] + sorted(rng_.choice(np.arange(4, B - 1), ORACLE_LANES - 2,
+                                                 replace=False).tolist())
+        for j in lanes_:
+            shared = o.mul(ka[j], o.mul_base(kb[j]))[0].to_bytes(nb, "big")
+            if (rows["pub_a"][j], rows["pub_b"][j], rows["s_ab"][j]) != (
+                    o.compress(o.mul_base(ka[j])), o.compress(o.mul_base(kb[j])), shared):
+                raise RuntimeError(f"{name} lane {j} differs from the oracle")
+        if not kat_ok:
+            raise RuntimeError(f"{name}: a KAT lane differs")
+        sec2_cores[name] = {"keygen": lambda: keygen(sa), "exchange": lambda: exchange(wb, pub_a)}
+        keygen_runs = host_rate(sec2_cores[name]["keygen"])
+        exchange_runs = host_rate(sec2_cores[name]["exchange"])
+        sec2_times[name] = {"keygen_s": keygen_runs, "keygens_per_s": B / statistics.median(keygen_runs),
+                            "exchange_s": exchange_runs,
+                            "exchanges_per_s": B / statistics.median(exchange_runs)}
+        emit({"phase": f"sec2_{name}", "B": B, "shape": spec.shape, "limbs": f.n,
+              "exchanges_agreeing": agree, "bad_keys_rejected": {str(j): "x = p" if j == 1 else
+                                                                 "x off the curve" if j == 2 else "tag 4"
+                                                                 for j in bad},
+              "kat_lanes": len(kats), "kats_ok": kat_ok, "oracle_lanes": len(lanes_),
+              "keygen_first_call_s": keygen_s, "exchange_first_call_s": exch_s,
+              "launches_per_call": {"keygen": path_counts[f"{name}_keygen(a)"]["pow_sec2_kernel"],
+                                    "exchange": path_counts[f"{name}_ecdh(a)"]["pow_sec2_kernel"]},
+              **sec2_times[name]})
+
+    def host_rate(fn, reps=3):
+        """Host clock around whole calls of fn, each ending in synchronize."""
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        return runs
+
+    for name in ("p256r1", "p256k1"):
+        sec2_full_width(name)
+
+    others = [n for n in sec2.ALL if n not in ("p256r1", "p256k1")]
+    small = {}
+    for name in others:
+        spec, o = sec2.get_curve(name), oracle.sec2_curve(name)
+        f = spec.field
+        rng_ = np.random.default_rng(len(name) * 7 + SEC2_PATH_B)
+        ks = distinct_scalars(o, SEC2_PATH_B, rng_)
+        ks[:3] = [1, 2, o.order - 1]
+        sb_ = scalar_cols(spec, ks)
+        G = spec.generator((SEC2_PATH_B,), dev)
+        P, _ = counted(f"{name}_scalar_mul", lambda: spec.scalar_mul(G, windows_from(spec, sb_)), {})
+        C, _ = counted(f"{name}_mul_base", lambda: spec.mul_base(sb_), {})
+        by, _ = counted(f"{name}_compress", lambda: spec.compress(P), {"pow_sec2_kernel": 1})
+        n_sqrt_pows = 2 if f.sqrt_kind == "tonelli" else 1
+        (Q, ok), _ = counted(f"{name}_decompress", lambda: spec.decompress(by),
+                             {"pow_sec2_kernel": n_sqrt_pows})
+        rows = col_rows(by)
+        lanes_ = list(range(3)) + sorted(rng_.choice(np.arange(3, SEC2_PATH_B), SEC2_ORACLE_LANES - 3,
+                                                     replace=False).tolist())
+        oracle_ok = all(rows[j] == o.compress(o.mul_base(ks[j])) for j in lanes_)
+        same = bool(spec.eq(C, P).all()) and bool(ok.all()) and bool(spec.eq(Q, P).all())
+        if not (oracle_ok and same):
+            raise RuntimeError(f"{name}: oracle lanes {oracle_ok}, comb = CT = decompress(compress) {same}")
+        small[name] = {"shape": spec.shape, "limbs": f.n, "sqrt": f.sqrt_kind,
+                       "decompress_pows": n_sqrt_pows}
+    emit({"phase": "sec2_other_curves", "B": SEC2_PATH_B, "oracle_lanes": SEC2_ORACLE_LANES,
+          "checks": "scalar_mul and compress vs oracle; mul_base == scalar_mul; "
+                    "decompress(compress(P)) == P, all lanes valid",
+          "curves": small})
+
     # -- phase 8: kernel times -------------------------------------------------
-    n_dig = len(group.exp_digits(e_sqrt))
     sources = {
         "ed_add": "eccoxide_tpu/ops/pallas_group.py:92 (_add_call, via pallas_add :144)",
         "ed_double": "eccoxide_tpu/ops/pallas_group.py:119 (_double_call, via pallas_double :161)",
         "pow_const_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241)",
         "pow448_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241, "
                          "for the field of eccoxide_tpu/curves/curve448.py:15)",
+        "pow_sec2_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241, "
+                           "for the fields of eccoxide_tpu/curves/sec2.py:55)",
     }
     kernel_of = {"ed_add": "ed_add_kernel", "ed_double": "ed_double_kernel",
-                 "pow_const_kernel": "pow_kernel", "pow448_kernel": "pow448_kernel"}
+                 "pow_const_kernel": "pow_kernel", "pow448_kernel": "pow448_kernel",
+                 "pow_sec2_kernel": "pow_sec2_kernel"}
     kernel_source = {"ed_add": "group.cu", "ed_double": "group.cu", "pow_const_kernel": "group.cu",
-                     "pow448_kernel": "pow448.cu"}
+                     "pow448_kernel": "pow448.cu", "pow_sec2_kernel": "pow_sec2.cu"}
 
     def double_case(W, k, need_t):
         p = rand_points(W)
@@ -663,22 +856,51 @@ def main() -> int:
                 lambda: group.ed_double(p, need_t, k),
                 lambda: group.ed_double_plain(p, need_t, k))
 
+    def pow_madds(e, mul, sq):
+        """Limb multiply-adds per lane of x^e by the 4-bit chain: 14 products
+        for the table x^2..x^15, then per digit after the first 4 squarings,
+        and one product unless the digit is 0 (e is public: a product by
+        x^0 is not work the function needs)."""
+        dig = group.exp_digits(e)[1:]
+        return 14 * mul + 4 * sq * len(dig) + mul * sum(1 for d in dig if d)
+
     def pow_case(W):
         x = rand_fe(W)
         return ("pow_const_kernel", {"W": W, "e": "(p-5)/8"},
-                14 * 100 + (n_dig - 1) * (4 * 55 + 100), 2 * 40,
+                pow_madds(e_sqrt, 100, 55), 2 * 40,
                 lambda: group.pow_const_kernel(x, e_sqrt),
                 lambda: group.pow_const_plain(x, e_sqrt))
 
     def pow448_case(W):
-        # the ladder's inverse: 14 products of 256 multiply-adds for the
-        # table, then per digit 4 squarings of 136 and one product
+        # the ladder's inverse: products of 256 multiply-adds, squarings
+        # of 136
         x = rand_fe448(W)
-        nd = len(group.exp_digits(e_inv448))
         return ("pow448_kernel", {"W": W, "e": "p-2"},
-                14 * 256 + (nd - 1) * (4 * 136 + 256), 2 * 64,
+                pow_madds(e_inv448, 256, 136), 2 * 64,
                 lambda: group.pow448_kernel(x, e_inv448),
                 lambda: group.pow448_plain(x, e_inv448))
+
+    def pow_sec2_case(name, W):
+        # the inverse x^(p-2); a product or squaring is priced at its
+        # schoolbook terms and the nonzero entries of the prime's fold
+        # matrix (field_sec2._Format.madds), not at the kernel's dense fold
+        f = sec2.get_curve(name).field
+        n, e = f.n, f.p - 2
+        top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
+        x = (torch.randint(0, 1 << 62, (n, W), generator=gen, device=dev)
+             % (top.view(-1, 1) + 1)).to(torch.int32)
+        # what the kernel issues, for comparison: n^2 fold terms, no skipped digit
+        issued = 14 * 2 * n * n + (len(group.exp_digits(e)) - 1) * (
+            4 * (n * (n + 1) // 2 + n * n) + 2 * n * n)
+        return ("pow_sec2_kernel", {"W": W, "e": "p-2", "field": name, "limbs": n,
+                                    "kernel_madds_per_lane": issued},
+                pow_madds(e, f.fmt.madds(), f.fmt.madds(square=True)), 2 * 4 * n,
+                lambda: group.pow_sec2_kernel(f, x, e),
+                lambda: group.pow_sec2_plain(f, x, e))
+
+    # one field of each limb count after p256r1, the main case
+    sec2_instances = ["p256r1"] + [next(c for c in sec2.ALL if sec2.get_curve(c).field.n == n)
+                                   for n in build.POW_SEC2_LIMBS if n != 11]
 
     # the first case of each kernel is its row in the kernels line; the
     # Straus shapes (W = B) are also profiled alone, host-issued, to hold the
@@ -687,7 +909,8 @@ def main() -> int:
              + [add_case(B, mode) for mode in ADD_MODES[1:]]
              + [double_case(B, 4, True), double_case(B, 1, True),
                 double_case(1, 8, True), double_case(1, 1, True),
-                pow_case(B), pow448_case(B), pow448_case(4 * B)])
+                pow_case(B), pow448_case(B), pow448_case(4 * B)]
+             + [pow_sec2_case(name, B) for name in sec2_instances])
     timings = []
     for case in cases:
         row = timed(*case)
@@ -704,17 +927,7 @@ def main() -> int:
                    "host-issued calls",
           "timings": timings})
 
-    # verifies/s: host clock around whole calls ending in synchronize
-    def host_rate(fn, reps=3):
-        runs = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-        return runs
-
+    # verifies/s: host clock around whole calls ending in synchronize (host_rate)
     straus_runs = host_rate(lambda: pe.verify_host(pks, msgs, sigs, device="cuda", tables=tables), 5)
     rlc_runs = host_rate(lambda: pb.verify_batch_host(
         pks, msgs, sigs, rng=np.random.default_rng(9), device="cuda", tables=tables), 5)
@@ -753,6 +966,7 @@ def main() -> int:
           "sign_host_s": sign_runs, "signs_per_s": B / statistics.median(sign_runs),
           "x25519_exchanges_per_s": B / statistics.median(core_runs["x25519_core"]),
           "x448_exchanges_per_s": B / statistics.median(core_runs["x448_core"]),
+          "sec2": sec2_times,
           **{f"{name}_s": runs for name, runs in core_runs.items()},
           "straus_verify_host_s": straus_runs,
           "straus_verifies_per_s": B / statistics.median(straus_runs),
@@ -766,18 +980,21 @@ def main() -> int:
     # -- where the device time goes: one profiled call of each core ----------
     profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
                 "rlc_core": device_profile(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8)),
-                **{name: device_profile(fn) for name, fn in cores.items()}}
+                **{name: device_profile(fn) for name, fn in cores.items()},
+                "sec2_p256r1_exchange": device_profile(sec2_cores["p256r1"]["exchange"])}
     emit({"phase": "profile", "card": card, "B": B, **profiles})
 
     # the kernels line: each kernel's first case, its graph-replay time held
     # against the profiler's per-launch time over one Straus verify_core
     # (every launch there is at W = B; the doublings are runs of k = 4; the
     # adds' graph and alone times are weighted by the Straus call's launches
-    # of each mode), over one x448 call for pow448. ed_add's other cases are
-    # listed under its row as "modes". Launches: the sum over the paths'
+    # of each mode), over one x448 call for pow448, over one p256r1 exchange
+    # for pow_sec2 (its two launches: the square root and the inverse).
+    # ed_add's other cases are listed under its row as "modes", pow_sec2's
+    # other limb counts as "fields". Launches: the sum over the paths'
     # counted runs, listed by path.
     kernels = []
-    cross_core = {"pow448_kernel": "x448_core"}
+    cross_core = {"pow448_kernel": "x448_core", "pow_sec2_kernel": "sec2_p256r1_exchange"}
     for name in sources:
         mine = [t for t in timings if t["name"] == name]
         main_row = mine[0]
@@ -808,6 +1025,8 @@ def main() -> int:
         }
         if name == "ed_add":
             row["modes"] = [{k: v for k, v in t.items() if k != "name"} for t in mine[1:]]
+        if name == "pow_sec2_kernel":
+            row["fields"] = [{k: v for k, v in t.items() if k != "name"} for t in mine[1:]]
         kernels.append(row)
 
     print(card_line)

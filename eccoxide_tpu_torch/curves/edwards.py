@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..limbs import ct_lookup
 from ..ops import group
 
 
@@ -154,22 +155,20 @@ class EdwardsCurve:
         return torch.stack([e.with_t() for e in tab])
 
     @staticmethod
-    def _ct_lookup(table: torch.Tensor, idx: torch.Tensor) -> ExtPoint:
-        """table[idx] for a secret (*batch,) digit: the sum over all entries
-        of the (entries, 4, 10, *batch) table, each masked by its own
-        equality with idx, in int32. No gather: every entry is read for
-        every lane."""
-        ids = torch.arange(table.shape[0], device=table.device)
-        sel = ids.view((-1,) + (1,) * idx.dim()) == idx[None]
-        return ExtPoint(torch.where(sel[:, None, None], table, 0).sum(0, dtype=torch.int32))
+    def _ct_lookup(table: torch.Tensor, idx: torch.Tensor, ids=None) -> ExtPoint:
+        """table[idx] for a secret (*batch,) digit of an (entries, 4, 10,
+        *batch) table: the masked sum of ``limbs.ct_lookup``, never a
+        gather."""
+        return ExtPoint(ct_lookup(table, idx, ids))
 
     def scalar_mul(self, p: ExtPoint, windows: torch.Tensor) -> ExtPoint:
         """[k]p in constant time for (64, *batch) 4-bit digits of k, most
         significant first: per digit one run of 4 doublings (one launch), a
         masked lookup of [0]p .. [15]p, one full addition."""
         table = self.window_table(p, 4)
+        ids = torch.arange(table.shape[0], device=table.device)
         acc = self.identity(p.xyzt.shape[2:], p.xyzt.device)
         for dig in windows:
             acc = self.double(acc, k=4)
-            acc = self.add(acc, self._ct_lookup(table, dig))
+            acc = self.add(acc, self._ct_lookup(table, dig, ids))
         return acc

@@ -97,3 +97,27 @@ def limbs_to_bytes(x: torch.Tensor, widths, n_bytes: int) -> torch.Tensor:
             v = v | (x64[q + 1] << (widths[q] - r))
         rows.append(v & 0xFF)
     return torch.stack(rows).to(torch.int32)
+
+
+def windows_from_bytes_le(by: torch.Tensor, n_windows: int) -> torch.Tensor:
+    """(n_bytes, B) LE scalar bytes -> (n_windows, B) 4-bit digits, most
+    significant first (the operand of a window scalar multiplication)."""
+    bits = 4 * (n_windows - 1 - np.arange(n_windows))
+    q = torch.as_tensor(bits // 8, device=by.device)
+    r = torch.as_tensor(bits % 8, device=by.device)
+    return (by[q] >> r[:, None]) & 0xF
+
+
+def ct_lookup(table: torch.Tensor, idx: torch.Tensor, ids=None) -> torch.Tensor:
+    """table[idx] for a secret (*batch,) index into an int32 table of shape
+    (entries, *row, *batch), its batch axes of size 1 where every lane reads
+    the same entries: the sum over all entries, each masked by its own
+    equality with idx, in int32. No gather and no float product: every
+    entry is read for every lane, and limbs are summed exactly. ``ids`` is
+    ``torch.arange(entries)`` on the table's device, made once by a caller
+    that looks up many times."""
+    if ids is None:
+        ids = torch.arange(table.shape[0], device=table.device)
+    sel = ids.view((-1,) + (1,) * idx.dim()) == idx[None]
+    sel = sel.view((table.shape[0],) + (1,) * (table.dim() - 1 - idx.dim()) + tuple(idx.shape))
+    return torch.where(sel, table, 0).sum(0, dtype=torch.int32)

@@ -3,7 +3,9 @@
 - The CUDA kernels are compiled by ``nvcc`` for ``sm_90a``, one shared
   library with a plain C interface per source (``csrc/group.cu``: the
   edwards25519 add, double and pow kernels; ``csrc/pow448.cu``: the pow
-  kernel over FQ448), every compiler started at once.
+  kernel over FQ448; ``csrc/pow_sec2.cu``: the pow kernel over the SEC2
+  primes, one instance per limb count of ``POW_SEC2_LIMBS``), every
+  compiler started at once.
 - The host batch SHA-512 (``native/sha512.cpp`` at the repository root) is
   compiled by ``g++``.
 
@@ -27,8 +29,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = {"group": CSRC / "group.cu", "pow448": CSRC / "pow448.cu"}
-KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"], "pow448": [CSRC / "fe448.cuh"]}
+KERNEL_SOURCES = {"group": CSRC / "group.cu", "pow448": CSRC / "pow448.cu",
+                  "pow_sec2": CSRC / "pow_sec2.cu"}
+KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"], "pow448": [CSRC / "fe448.cuh"],
+               "pow_sec2": [CSRC / "fe_sec2.cuh"]}
+# the limb counts of the 15 SEC2 coordinate fields (field_sec2.limb_count),
+# one entry point pow_sec2_launch_<n> each in csrc/pow_sec2.cu
+POW_SEC2_LIMBS = (6, 7, 9, 10, 11, 15, 20)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -134,6 +141,8 @@ _ENTRY_POINTS = {
               "ed_double_launch": [_vp, _vp, _i32, _i32, _i64, _vp],
               "pow_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
     "pow448": {"pow448_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
+    "pow_sec2": {f"pow_sec2_launch_{n}": [_vp, _vp, _vp, _i32, _vp, _i64, _vp]
+                 for n in POW_SEC2_LIMBS},
 }
 
 

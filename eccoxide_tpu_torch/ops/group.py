@@ -15,13 +15,17 @@ The wrappers, each with its plain PyTorch version beside it:
   in the plain version alike;
 - ``pow_const_kernel(x, e)``: x^e over FQ for a public constant e;
 - ``pow448_kernel(x, e)``: the same chain over FQ448 (``field448.py``), the
-  JAX package's pow kernel instantiated for the field of curve448.
+  JAX package's pow kernel instantiated for the field of curve448;
+- ``pow_sec2_kernel(f, x, e)``: the same chain over a SEC2 coordinate
+  field f (``field_sec2.Field``), the JAX package's pow kernel
+  instantiated for the 15 SEC2 primes: one kernel template on the limb
+  count, the field's fold matrix an operand.
 
 Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
 ``field.py``); field batches are ``(10, *batch)``, ``(16, *batch)`` for
-FQ448. A wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches its kernel (``csrc/group.cu``, ``csrc/pow448.cu``) or
-raises. Each wrapper counts its launches in a plain
+FQ448, ``(f.n, *batch)`` for a SEC2 field. A wrapper given CPU tensors
+runs the plain version; given CUDA tensors it launches its kernel
+(``csrc/group.cu``, ``csrc/pow448.cu``, ``csrc/pow_sec2.cu``) or raises. Each wrapper counts its launches in a plain
 integer attribute ``launches``, and ``ed_add`` splits its count by mode in
 ``ed_add.launches_by_mode``; nothing else touches the counts.
 
@@ -137,7 +141,8 @@ def exp_digits(e: int) -> list[int]:
 
 def _pow_plain(f, x, e: int):
     """x^e over field f: table x^0..x^15, then per digit 4 squarings and 1
-    multiply (group.cu pow_kernel, pow448.cu pow448_kernel)."""
+    multiply (group.cu pow_kernel, pow448.cu pow448_kernel, pow_sec2.cu
+    pow_sec2_kernel)."""
     if e == 0:
         return f.one(x.shape[1:], x.device)
     tab = [f.one(x.shape[1:], x.device), x]
@@ -160,6 +165,11 @@ def pow_const_plain(x, e: int):
 def pow448_plain(x, e: int):
     """x^e over FQ448, the chain of the pow448 kernel."""
     return _pow_plain(FQ448, x, e)
+
+
+def pow_sec2_plain(f, x, e: int):
+    """x^e over the SEC2 field f, the chain of the pow_sec2 kernel."""
+    return _pow_plain(f, x, e)
 
 
 # ---------------------------------------------------------------------------
@@ -244,10 +254,12 @@ def _digits_on(e: int, device) -> torch.Tensor:
     return t
 
 
-def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper) -> torch.Tensor:
+def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper,
+         extra=()) -> torch.Tensor:
     """x^e over field f for an int32 (f.n, *batch) batch and a public
     e >= 0: the plain version on a CPU tensor, else one launch of the C
-    entry point ``entry`` of kernel library ``lib``."""
+    entry point ``entry`` of kernel library ``lib``, which takes the
+    tensors ``extra`` (on x's device) after the digits."""
     if x.dtype != torch.int32 or x.dim() < 1 or x.shape[0] != f.n:
         raise ValueError(f"expected int32 ({f.n}, *batch), got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -264,8 +276,8 @@ def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper) -> torch.Ten
     dig = _digits_on(e, x.device)
     out = torch.empty_like(x)
     launch = getattr(build.kernels(lib), entry)
-    rc = launch(x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(), w,
-                _stream(x.device))
+    rc = launch(x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(),
+                *(t.data_ptr() for t in extra), w, _stream(x.device))
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -286,7 +298,20 @@ def pow448_kernel(x: torch.Tensor, e: int) -> torch.Tensor:
 
 pow448_kernel.launches = 0
 
-WRAPPERS = (pow_const_kernel, ed_add, ed_double, pow448_kernel)
+
+def pow_sec2_kernel(f, x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e over the SEC2 field f (``field_sec2.Field``) for an int32
+    (f.n, *batch) batch and a public e >= 0; on the card the kernel
+    instance for f.n limbs, with f's fold matrix."""
+    if f.n not in build.POW_SEC2_LIMBS:
+        raise ValueError(f"no pow_sec2 kernel for {f.n} limbs")
+    return _pow(f, x, e, "pow_sec2", f"pow_sec2_launch_{f.n}", pow_sec2_kernel,
+                (f.fold_table(x.device),))
+
+
+pow_sec2_kernel.launches = 0
+
+WRAPPERS = (pow_const_kernel, ed_add, ed_double, pow448_kernel, pow_sec2_kernel)
 
 
 def reset_launches():

@@ -18,19 +18,10 @@ import torch
 from ..curves.curve25519 import EDWARDS as ED
 from ..curves.curve25519 import FL
 from ..curves.edwards import ExtPoint
+from ..device import resolve_device
+from ..limbs import windows_from_bytes_le
 from ..ops.sha512 import sha512_batch
 from ..params.comb import comb_tables, edwards_byte_table, mul_base
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. A CUDA device that is not there
-    raises; nothing moves to the CPU unless the caller asks for it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain versions on the CPU")
-    return dev
 
 
 class VerifyTables:
@@ -66,14 +57,6 @@ def clamp_scalar_bytes(h: np.ndarray) -> np.ndarray:
     h[0] &= 0xF8
     h[31] = (h[31] & 0x7F) | 0x40
     return h
-
-
-def windows_from_bytes_le(by, n_windows: int):
-    """(nbytes, B) LE bytes -> (n_windows, B) 4-bit digits, MSB first."""
-    bits = 4 * (n_windows - 1 - np.arange(n_windows))
-    q = torch.as_tensor(bits // 8, device=by.device)
-    r = torch.as_tensor(bits % 8, device=by.device)
-    return (by[q] >> r[:, None]) & 0xF
 
 
 def double_scalar_mul_base(s_bytes, Q: ExtPoint, k_bytes, tables: VerifyTables):

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from eccoxide_tpu_torch.curves import sec2
+from eccoxide_tpu_torch.limbs import windows_from_bytes_le
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import x448 as tx448
 from eccoxide_tpu_torch.protocol import x25519 as tx25519
@@ -94,13 +96,23 @@ def test_sign_cores_trace_is_independent_of_the_secret():
 
 
 def test_scalar_mul_trace_is_independent_of_the_secret():
-    """Both the scalar and the point differ between the runs."""
+    """Both the scalar and the point differ between the runs: edwards25519's
+    CT scalar_mul, and a P-256 key generation (comb, compress) and ECDH
+    (decompress of the peer's key, CT scalar_mul, to_affine, bytes)."""
     tables = tpe.SignTables("cpu")
     points = {seed: tpe.scalar_mul_base(_bytes(np.random.default_rng(seed), 32), tables)
               for seed in (1, 2)}
+    p256 = sec2.get_curve("p256r1")
+    peers = {seed: p256.compress(p256.mul_base(_bytes(np.random.default_rng(seed + 20), 32)))
+             for seed in (1, 2)}
 
     def run(seed):
-        tpe.scalar_mul(points[seed], _bytes(np.random.default_rng(seed + 10), 32))
+        k = _bytes(np.random.default_rng(seed + 10), 32)
+        tpe.scalar_mul(points[seed], k)
+        p256.compress(p256.mul_base(k))
+        Q, _ = p256.decompress(peers[seed])
+        sx, _ = p256.to_affine(p256.scalar_mul(Q, windows_from_bytes_le(k, 64)))
+        p256.field.to_bytes_be(sx)
 
     _assert_same_trace(run)
 

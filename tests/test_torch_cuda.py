@@ -143,7 +143,7 @@ def test_zero_width_launches_nothing():
     y = torch.zeros((16, 0), dtype=torch.int32, device=dev)
     assert group.pow448_kernel(y, 5) is y
     assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0,
-                                "pow448_kernel": 0}
+                                "pow448_kernel": 0, "pow_sec2_kernel": 0}
 
 
 def test_verifiers_on_the_card_match_the_cpu():
@@ -175,7 +175,7 @@ def test_sign_and_ladders_on_the_card_match_the_cpu():
     group.reset_launches()
     sigs = tpe.sign_host(sks, msgs)
     assert group.launches() == {"pow_const_kernel": 2, "ed_add": 128, "ed_double": 0,
-                                "pow448_kernel": 0}
+                                "pow448_kernel": 0, "pow_sec2_kernel": 0}
     assert group.ed_add.launches_by_mode["mixed"] == 128
     assert sigs == tpe.sign_host(sks, msgs, device="cpu")
     s32 = bytes(rng.randrange(256) for _ in range(32))

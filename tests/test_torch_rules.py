@@ -90,7 +90,7 @@ def test_cpu_tensors_never_launch():
     group.pow448_kernel(FQ448.one((3,), "cpu"), FQ448.p - 2)
     tpe.verify_host([bytes(32)], [b""], [bytes(64)], device="cpu")
     assert group.launches() == {"pow_const_kernel": 0, "ed_add": 0, "ed_double": 0,
-                                "pow448_kernel": 0}
+                                "pow448_kernel": 0, "pow_sec2_kernel": 0}
     assert group.ed_add.launches_by_mode == {"full": 0, "need_t=False": 0, "mixed": 0}
 
 
