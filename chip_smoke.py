@@ -18,7 +18,11 @@ fixed lanes), P-256 and secp256k1 key generation and ECDH at B=32768
 ``scalar_mul``, ``to_affine``; both ways, NIST or sage KATs, bad
 encodings in fixed lanes) and the other 13 SEC2 curves at B=256 against
 the integer oracle. It counts the kernel launches of each path, with the counts
-set to 0 just before it, and times kernels, plain versions and paths. A kernel's time is device time per launch from a
+set to 0 just before it, and times kernels, plain versions and paths. It
+measures the card's rate of 32x32->64 multiply-adds (IMAD.WIDE.U32, the pow
+kernels' product instruction) with a probe kernel (ops/probe.py), and prices
+every operation bound at the lower of that rate and the data sheet's 32-bit
+IMAD rate. A kernel's time is device time per launch from a
 CUDA graph of wrapper calls replayed between CUDA events, printed beside
 the host's time per wrapper call and held against the profiler's per-launch
 time over one Straus verify. Each phase prints one JSON line; the last line is
@@ -58,6 +62,7 @@ INT32_MAD_PER_CLK_PER_SM = 64
 GRAPH_LAUNCHES = 20      # wrapper calls captured in one CUDA graph
 GRAPH_REPLAYS = 10
 E_SHORT = 0x1234         # a short public exponent for the pow kernels' checks
+E_SPARSE = 0x1000F       # one with zero digits (no product on them)
 # (first lane, width) of the SEC2 pow kernel's checks: widths 0, 1 (the
 # largest limbs, then a random lane), 127, 128, 129 and B
 SEC2_CHECK_LANES = ((0, 0), (0, 1), (1, 1), (0, 127), (0, 128), (0, 129), (0, B))
@@ -198,9 +203,10 @@ X448_LOW_ORDER = [v.to_bytes(56, "little") for v in (0, 1, _P448 - 1, _P448, _P4
 
 PORT_KERNELS = ("ed_add_kernel", "ed_double_kernel", "pow_kernel", "pow448_kernel",
                 "pow_sec2_kernel")
+PROBE_KERNEL = "imad_probe_kernel"
 # a kernel's name in ptxas and SASS listings: the pow_sec2 instances are
-# told apart by their limb count (template argument ILi<n>E)
-_KERNEL_RE = "(" + "|".join(PORT_KERNELS) + r")(?:ILi(\d+)E)?"
+# told apart by their prime (template argument I<len><name>E, e.g. I6p256r1E)
+_KERNEL_RE = "(" + "|".join(PORT_KERNELS + (PROBE_KERNEL,)) + r")(?:I\d+(p\d+[a-z]\d)E)?"
 SEC2_PATH_B = 256        # lanes of the 13 other SEC2 curves
 SEC2_ORACLE_LANES = 16
 SASS_OPS = ("IMAD.WIDE", "IMAD", "SHF", "IADD3", "LDL", "STL")
@@ -239,6 +245,52 @@ def sass_counts(lib_paths) -> dict:
 
 def _kernel_key(m) -> str:
     return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+# why no PyTorch call stands beside a kernel (library_ms null)
+LIBRARY_NONE = dict.fromkeys(
+    ("ed_add", "ed_double"), "no single PyTorch call computes an Edwards group operation")
+LIBRARY_NONE.update(dict.fromkeys(
+    ("pow_const_kernel", "pow448_kernel", "pow_sec2_kernel"),
+    "no single PyTorch call computes a multi-limb modular pow"))
+PROBE_Y = 0x9E3779B9          # the probe's multiplier (odd, 32 bits)
+PROBE_BLOCKS_PER_SM = 8       # 8 blocks of 256 threads: 2048 threads per SM
+PROBE_TRIPS = 20000           # about 0.09 s per launch on an H100
+PROBE_LAUNCHES = 10
+
+
+def mad_rate(dev, n_sm: int) -> dict:
+    """32x32->64 multiply-adds per second on the card, as the pow kernels'
+    products compile (IMAD.WIDE.U32, sums by IADD3): the probe
+    (ops/probe.py) checked against its plain version on a small launch,
+    then PROBE_LAUNCHES launches that fill every SM between CUDA events,
+    the SM clock read by nvidia-smi while they run."""
+    from eccoxide_tpu_torch.ops import probe
+
+    got = probe.imad_wide_chains(2, 3, PROBE_Y, dev).cpu()
+    want = torch.from_numpy(probe.imad_wide_chains_plain(2, 3, PROBE_Y).view("int64"))
+    if not torch.equal(got, want):
+        raise RuntimeError("the multiply-add probe differs from its plain version")
+    blocks = PROBE_BLOCKS_PER_SM * n_sm
+    probe.imad_wide_chains(blocks, PROBE_TRIPS, PROBE_Y, dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PROBE_LAUNCHES):
+        probe.imad_wide_chains(blocks, PROBE_TRIPS, PROBE_Y, dev)
+    end.record()
+    clock = smi("clocks.sm")
+    torch.cuda.synchronize()
+    secs = start.elapsed_time(end) / 1e3
+    madds = PROBE_LAUNCHES * probe.madds(blocks, PROBE_TRIPS)
+    clock_mhz = float(clock.split()[0])
+    return {"madds": madds, "seconds": secs, "madds_per_s": madds / secs,
+            "clocks_sm_during": clock,
+            "madds_per_clk_per_sm": madds / secs / (n_sm * clock_mhz * 1e6),
+            "probe": f"{blocks} blocks of {probe.THREADS} threads, {probe.CHAINS} chains "
+                     f"of {probe.UNROLL} x {PROBE_TRIPS} steps each, checked against "
+                     "its plain version on 2 blocks"}
 
 
 def device_profile(fn) -> dict:
@@ -333,10 +385,12 @@ def main() -> int:
     regs = {}
     for lib in libs.values():
         regs.update(ptxas_report(lib.log))
-    want_regs = set(PORT_KERNELS) - {"pow_sec2_kernel"} | {
-        f"pow_sec2_kernel<{n}>" for n in build.POW_SEC2_LIMBS}
+    want_regs = set(PORT_KERNELS + (PROBE_KERNEL,)) - {"pow_sec2_kernel"} | {
+        f"pow_sec2_kernel<{name}>" for name in build.POW_SEC2_INSTANCES.values()}
+    spilled = {k: v for k, v in regs.items() if v.get("spill_stores") or v.get("spill_loads")}
     if set(regs) != want_regs:
         raise RuntimeError(f"ptxas report lacks kernels: {regs}")
+    sass = sass_counts([lib.path for lib in libs.values()])
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "nvcc": nvcc_version,
           "clocks_max_sm_mhz": clock_max_mhz, "clocks_sm_mhz_now": smi("clocks.sm"),
@@ -345,7 +399,25 @@ def main() -> int:
           "sha512_build_s": built["sha512"].seconds,
           "kernel_libraries": {name: os.path.relpath(lib.path) for name, lib in libs.items()},
           "ptxas": regs,
-          "sass_static_opcodes": sass_counts([lib.path for lib in libs.values()])})
+          "sass_static_opcodes": sass})
+    if spilled:
+        raise RuntimeError(f"kernels spill: {spilled}")
+
+    # -- the multiply-add rate: the bound of every kernel's operations -------
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    spec_peak = INT32_MAD_PER_CLK_PER_SM * n_sm * clock_max_mhz * 1e6
+    mad = mad_rate(dev, n_sm)
+    # cuobjdump: the probe's loop is IMAD.WIDE.U32, one per multiply-add
+    from eccoxide_tpu_torch.ops import probe
+    probe_sass = sass.get(PROBE_KERNEL, {})
+    if "not available" not in sass and probe_sass.get("IMAD.WIDE", 0) < probe.CHAINS * probe.UNROLL:
+        raise RuntimeError(f"the probe's SASS lacks its IMAD.WIDE chains: {probe_sass}")
+    int_peak = min(spec_peak, mad["madds_per_s"])
+    bound_rate = "probed IMAD.WIDE.U32" if mad["madds_per_s"] < spec_peak else "spec 32-bit IMAD"
+    emit({"phase": "imad_wide_rate", "card": card, **mad, "probe_sass": probe_sass,
+          "madds_per_clk_per_sm_at_max_clock": mad["madds_per_s"] / (n_sm * clock_max_mhz * 1e6),
+          "clocks_max_sm_mhz": clock_max_mhz, "spec_madds_per_s": spec_peak,
+          "bound_madds_per_s": int_peak, "bound_rate": bound_rate})
 
     # -- phase 2: kernels against their plain versions ---------------------
     gen = torch.Generator(device=dev).manual_seed(2024)
@@ -385,9 +457,6 @@ def main() -> int:
     def canon_pt(a):
         return FQ.canon(a.transpose(0, 1)).transpose(0, 1)
 
-    clock_hz = clock_max_mhz * 1e6
-    int_peak = INT32_MAD_PER_CLK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_hz
-
     def timed(name, shape, ops, nbytes, k_fn, p_fn):
         """Device ms per launch (graph replay), host us per call and plain
         ms of one case, with its bound for `ops` multiply-adds and
@@ -400,6 +469,7 @@ def main() -> int:
                "plain_ms": events_ms(p_fn, 3),
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "ops_rate": bound_rate,
                "madds_per_lane": ops, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         torch.cuda.synchronize()
         return row
@@ -468,7 +538,7 @@ def main() -> int:
             if W >= 3:
                 x[:, 0] = 0
                 x[:, 1] = max_fe(1)[:, 0]
-            for e, tag in ((e_sqrt, "(p-5)/8"), (e_inv, "p-2")):
+            for e, tag in ((e_sqrt, "(p-5)/8"), (e_inv, "p-2"), (E_SPARSE, hex(E_SPARSE))):
                 compare("pow_const_kernel", group.pow_const_kernel(x, e),
                         group.pow_const_plain(x, e), W, f"e={tag}")
             y = rand_fe448(W)
@@ -476,7 +546,7 @@ def main() -> int:
                 y[:, 0] = 0
                 y[:, 1] = max_fe448(1)[:, 0]
             for inp, kind in ((y, "random"), (max_fe448(W), "max limbs")):
-                for e, tag in ((e_inv448, "p-2"), (E_SHORT, hex(E_SHORT))):
+                for e, tag in ((e_inv448, "p-2"), (E_SHORT, hex(E_SHORT)), (E_SPARSE, hex(E_SPARSE))):
                     compare("pow448_kernel", group.pow448_kernel(inp, e),
                             group.pow448_plain(inp, e), W, f"{kind} e={tag}")
         torch.cuda.synchronize()
@@ -845,7 +915,7 @@ def main() -> int:
                  "pow_const_kernel": "pow_kernel", "pow448_kernel": "pow448_kernel",
                  "pow_sec2_kernel": "pow_sec2_kernel"}
     kernel_source = {"ed_add": "group.cu", "ed_double": "group.cu", "pow_const_kernel": "group.cu",
-                     "pow448_kernel": "pow448.cu", "pow_sec2_kernel": "pow_sec2.cu"}
+                     "pow448_kernel": "pow448.cu", "pow_sec2_kernel": "pow_sec2.cuh"}
 
     def double_case(W, k, need_t):
         p = rand_points(W)
@@ -880,27 +950,32 @@ def main() -> int:
                 lambda: group.pow448_kernel(x, e_inv448),
                 lambda: group.pow448_plain(x, e_inv448))
 
-    def pow_sec2_case(name, W):
-        # the inverse x^(p-2); a product or squaring is priced at its
-        # schoolbook terms and the nonzero entries of the prime's fold
-        # matrix (field_sec2._Format.madds), not at the kernel's dense fold
+    def pow_sec2_case(name, W, tag="p-2"):
+        # x^e for e the path's exponent `tag` of the field; a product or
+        # squaring is priced at its schoolbook terms and the nonzero entries
+        # of the prime's fold matrix (field_sec2._Format.madds), no product
+        # on a zero digit (pow_madds)
         f = sec2.get_curve(name).field
-        n, e = f.n, f.p - 2
+        e = f.path_exponents()[tag]
         top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
-        x = (torch.randint(0, 1 << 62, (n, W), generator=gen, device=dev)
+        x = (torch.randint(0, 1 << 62, (f.n, W), generator=gen, device=dev)
              % (top.view(-1, 1) + 1)).to(torch.int32)
-        # what the kernel issues, for comparison: n^2 fold terms, no skipped digit
-        issued = 14 * 2 * n * n + (len(group.exp_digits(e)) - 1) * (
-            4 * (n * (n + 1) // 2 + n * n) + 2 * n * n)
-        return ("pow_sec2_kernel", {"W": W, "e": "p-2", "field": name, "limbs": n,
-                                    "kernel_madds_per_lane": issued},
-                pow_madds(e, f.fmt.madds(), f.fmt.madds(square=True)), 2 * 4 * n,
+        dig = group.exp_digits(e)
+        return ("pow_sec2_kernel", {"W": W, "e": tag, "field": name, "limbs": f.n,
+                                    "zero_digits": sum(1 for d in dig[1:] if d == 0),
+                                    "digits": len(dig)},
+                pow_madds(e, f.fmt.madds(), f.fmt.madds(square=True)), 2 * 4 * f.n,
                 lambda: group.pow_sec2_kernel(f, x, e),
                 lambda: group.pow_sec2_plain(f, x, e))
 
-    # one field of each limb count after p256r1, the main case
-    sec2_instances = ["p256r1"] + [next(c for c in sec2.ALL if sec2.get_curve(c).field.n == n)
-                                   for n in build.POW_SEC2_LIMBS if n != 11]
+    # every instance (one per prime) on the inverse, p256r1 first, the main
+    # case; the fields of the timed paths (p256r1, p256k1) and P-521 also on
+    # the exponents of is_square and sqrt
+    sec2_timed = {name: ["p-2"] for name in ["p256r1"] + sorted(
+        set(build.POW_SEC2_INSTANCES.values()) - {"p256r1"},
+        key=lambda c: (sec2.get_curve(c).field.n, c))}
+    for name in ("p256r1", "p256k1", "p521r1"):
+        sec2_timed[name] = list(sec2.get_curve(name).field.path_exponents())
 
     # the first case of each kernel is its row in the kernels line; the
     # Straus shapes (W = B) are also profiled alone, host-issued, to hold the
@@ -910,7 +985,7 @@ def main() -> int:
              + [double_case(B, 4, True), double_case(B, 1, True),
                 double_case(1, 8, True), double_case(1, 1, True),
                 pow_case(B), pow448_case(B), pow448_case(4 * B)]
-             + [pow_sec2_case(name, B) for name in sec2_instances])
+             + [pow_sec2_case(name, B, tag) for name, tags in sec2_timed.items() for tag in tags])
     timings = []
     for case in cases:
         row = timed(*case)
@@ -975,7 +1050,8 @@ def main() -> int:
           "host_inputs_s": hash_runs, "straus_core_s": straus_core,
           "rlc_core_s": rlc_core, "rlc_core_peak_bytes": rlc_peak,
           "script_held_bytes": held,
-          "int32_mad_peak_per_s": int_peak, "hbm_bytes_per_s": HBM_BYTES_PER_S})
+          "bound_madds_per_s": int_peak, "bound_rate": bound_rate,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # -- where the device time goes: one profiled call of each core ----------
     profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
@@ -991,7 +1067,7 @@ def main() -> int:
     # of each mode), over one x448 call for pow448, over one p256r1 exchange
     # for pow_sec2 (its two launches: the square root and the inverse).
     # ed_add's other cases are listed under its row as "modes", pow_sec2's
-    # other limb counts as "fields". Launches: the sum over the paths'
+    # other primes and exponents as "fields". Launches: the sum over the paths'
     # counted runs, listed by path.
     kernels = []
     cross_core = {"pow448_kernel": "x448_core", "pow_sec2_kernel": "sec2_p256r1_exchange"}
@@ -1014,6 +1090,8 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
+            "library_ms_why_null": LIBRARY_NONE[name],
+            "ops_rate": main_row["ops_rate"],
             "shape": main_row["shape"], "host_us_per_call": main_row["host_us_per_call"],
             "cross_check": {
                 "shape": {"W": B, "mode": "Straus mix"} if name == "ed_add" else at_b[0]["shape"],

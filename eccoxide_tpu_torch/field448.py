@@ -9,8 +9,9 @@ Format: 16 non-negative limbs of 28 bits (limb i holds bits [28 i,
 28 i + 28)), products accumulated in int64. With 2^448 = 2^224 + 1 mod p
 and 224 = 8 x 28, the fold of a high column c >= 16 is two adds of whole
 columns: into c - 16 and c - 8. The CUDA kernel (``ops/csrc/fe448.cuh``)
-uses the same format, the same fold and the same carry, so the plain
-version and the kernel agree limb for limb.
+computes the same folded columns (by 8-limb halves, ``mul_cols_by_halves``)
+and the same carry, so the plain version and the kernel agree limb for
+limb.
 
 Overflow argument (all limbs non-negative, so ``>>`` and ``&`` are exact
 floor division and remainder):
@@ -76,11 +77,30 @@ def mul_col_bounds(xb, yb) -> list[int]:
     return raw[:N]
 
 
-def carry_bounds(h) -> list[int]:
-    """Upper bounds after ``_carry`` for non-negative columns bounded by h;
-    asserts that no intermediate reaches 2^63."""
+def mul_cols_by_halves(x, y) -> list[int]:
+    """The 16 folded columns as fe448.cuh computes them, by 8-limb halves
+    (t = 2^224, t^2 = t + 1 mod p): with A = x0 y0, X = x0 y1 + x1 y0 and
+    M = x1 y1 as 8x8 column products, column k is A_k + s and column
+    8 + k is A_{8+k} + X_k + s + M_{8+k}, where s = M_k + X_{8+k} +
+    M_{8+k}. On limb bounds this is the kernel's largest partial sum."""
+    def col(a, b, c):
+        return sum(a[i] * b[c - i] for i in range(HALF) if 0 <= c - i < HALF)
+
+    x0, x1, y0, y1 = x[:HALF], x[HALF:], y[:HALF], y[HALF:]
+    out = [0] * N
+    for k in range(HALF):
+        m2 = col(x1, y1, HALF + k)
+        s = m2 + col(x0, y1, HALF + k) + col(x1, y0, HALF + k) + col(x1, y1, k)
+        out[k] = col(x0, y0, k) + s
+        out[HALF + k] = col(x0, y0, HALF + k) + col(x0, y1, k) + col(x1, y0, k) + s + m2
+    return out
+
+
+def carry_bounds(h, rounds: int = CARRY_ROUNDS) -> list[int]:
+    """Upper bounds after ``rounds`` rounds of ``_carry`` for non-negative
+    columns bounded by h; asserts that no intermediate reaches 2^63."""
     h = list(h)
-    for _ in range(CARRY_ROUNDS):
+    for _ in range(rounds):
         assert all(0 <= v < _I63 for v in h)
         c = [v >> W for v in h]
         h = [min(v, M) for v in h]
@@ -114,6 +134,11 @@ def _tight_fixed_point() -> list[int]:
 TIGHT = _tight_fixed_point()
 MUL_COL = max(mul_col_bounds(TIGHT, TIGHT))
 assert MUL_COL < _I63
+# fe448.cuh: the columns by halves are the fold's (the same sums of the same
+# products, so also on these bounds), and after the first carry round every
+# limb is below 2^35, so the second round runs in 32 bits
+assert mul_cols_by_halves(TIGHT, TIGHT) == mul_col_bounds(TIGHT, TIGHT)
+assert max(carry_bounds(mul_col_bounds(TIGHT, TIGHT), 1)) < 2**35
 assert all(PAD[i] >= TIGHT[i] for i in range(N))
 assert max(a + b for a, b in zip(TIGHT, PAD)) < 2**31
 assert 2 * max(TIGHT) < 2**32                      # the kernel's 2 a_i

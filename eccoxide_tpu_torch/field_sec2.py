@@ -151,7 +151,7 @@ class _Format:
     def mul_bounds(self, xb, xv, yb, yv):
         n = self.n
         h, v = self._columns(xb, xv, yb, yv)
-        assert max(h) < 2**32                        # the kernel folds them as uint32
+        assert max(h) < 2**32                        # the kernel keeps them as uint32
         out = list(h[:n])
         for j in range(n):
             for i in range(n):
@@ -236,7 +236,7 @@ class _Format:
 def _carry_rounds(h: torch.Tensor, rounds: int) -> torch.Tensor:
     """Parallel carry rounds over int64 columns (k, *batch), in place: every
     limb but the top keeps its low 28 bits and passes the rest to the limb
-    above; the top limb keeps everything (fe_sec2.cuh ``carry``)."""
+    above; the top limb keeps everything (fe_sec2.cuh ``Carry2``)."""
     for _ in range(rounds):
         c = h[:-1] >> W
         h[:-1].bitwise_and_(M)       # in place on the views: no copy back
@@ -291,7 +291,6 @@ class Field:
                     "fold": torch.tensor(fmt.FOLD, **i64),
                     "fold0": torch.tensor(fmt.FOLD[0], **i64),
                     "cfold": torch.tensor(fmt.CFOLD, **i64),
-                    "fold32": torch.tensor(fmt.FOLD, dtype=torch.int32, device=dev),
                     "pad": torch.tensor(fmt.PAD, **i64),
                     "p": torch.tensor(fmt.P, **i64)}
 
@@ -300,10 +299,6 @@ class Field:
     def _col(self, name, x):
         t = self._c.get(x.device)[name]
         return t.view((t.shape[0],) + (1,) * (x.dim() - 1))
-
-    def fold_table(self, device) -> torch.Tensor:
-        """The fold matrix as int32 (n, n) on device (the kernel's operand)."""
-        return self._c.get(device)["fold32"]
 
     # -- construction / host conversion ------------------------------------
 

@@ -1,18 +1,21 @@
 """Builds the port's native code on first use and loads it with ctypes.
 
 - The CUDA kernels are compiled by ``nvcc`` for ``sm_90a``, one shared
-  library with a plain C interface per source (``csrc/group.cu``: the
-  edwards25519 add, double and pow kernels; ``csrc/pow448.cu``: the pow
-  kernel over FQ448; ``csrc/pow_sec2.cu``: the pow kernel over the SEC2
-  primes, one instance per limb count of ``POW_SEC2_LIMBS``), every
-  compiler started at once.
+  library with a plain C interface per source, every compiler started at
+  once: ``csrc/group.cu`` (the edwards25519 add, double and pow kernels),
+  ``csrc/pow448.cu`` (the pow kernel over FQ448), ``csrc/imad_probe.cu``
+  (the multiply-add rate probe) and, for each limb count of
+  ``POW_SEC2_LIMBS``, a source generated here (``pow_sec2_source``) with
+  one instance of ``csrc/pow_sec2.cuh`` per SEC2 coordinate prime of that
+  count, its fold matrix as constants.
 - The host batch SHA-512 (``native/sha512.cpp`` at the repository root) is
   compiled by ``g++``.
 
-Outputs go to ``eccoxide_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded. A missing compiler or a failed build
-raises ``BuildError``; nothing falls back.
+Outputs (and the generated sources, under ``gen/``) go to
+``eccoxide_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
+of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. A missing compiler or a failed build raises
+``BuildError``; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,16 +29,27 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..field_sec2 import limb_count
+from ..params.sec2_params import CURVES
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "_build"
+GEN_DIR = BUILD_DIR / "gen"
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = {"group": CSRC / "group.cu", "pow448": CSRC / "pow448.cu",
-                  "pow_sec2": CSRC / "pow_sec2.cu"}
-KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"], "pow448": [CSRC / "fe448.cuh"],
-               "pow_sec2": [CSRC / "fe_sec2.cuh"]}
-# the limb counts of the 15 SEC2 coordinate fields (field_sec2.limb_count),
-# one entry point pow_sec2_launch_<n> each in csrc/pow_sec2.cu
-POW_SEC2_LIMBS = (6, 7, 9, 10, 11, 15, 20)
+                  "imad_probe": CSRC / "imad_probe.cu"}
+KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"],
+               "pow448": [CSRC / "fe448.cuh", CSRC / "madw.cuh"],
+               "imad_probe": [CSRC / "madw.cuh"]}
+# The SEC2 pow kernel: one instance per distinct coordinate prime (p112r2,
+# p128r2 and p160r2 share the prime of p112r1, p128r1 and p160k1), named
+# after the first curve of params/sec2_params.py with it; one library per
+# limb count, its source generated into GEN_DIR.
+POW_SEC2_INSTANCES = {c["p"]: name for name, c in reversed(CURVES.items())}   # p -> name
+POW_SEC2_LIMBS = tuple(sorted({limb_count(p.bit_length()) for p in POW_SEC2_INSTANCES}))
+KERNEL_SOURCES.update({f"pow_sec2_{n}": GEN_DIR / f"pow_sec2_{n}.cu" for n in POW_SEC2_LIMBS})
+KERNEL_DEPS.update({f"pow_sec2_{n}": [CSRC / "pow_sec2.cuh", CSRC / "fe_sec2.cuh",
+                                      CSRC / "madw.cuh"] for n in POW_SEC2_LIMBS})
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -113,12 +127,49 @@ class _Job:
         return Built(self.out, log, secs)
 
 
+def pow_sec2_primes(n: int) -> list:
+    """[(instance name, p)] of the SEC2 pow kernel's instances of n limbs."""
+    return [(name, p) for p, name in POW_SEC2_INSTANCES.items()
+            if limb_count(p.bit_length()) == n]
+
+
+def pow_sec2_source(n: int) -> str:
+    """The generated source of library ``pow_sec2_<n>``: per prime of n
+    limbs, a struct with the limb count and the fold matrix
+    (``field_sec2._Format.FOLD``) as constants, and its entry point
+    ``pow_sec2_launch_<instance name>``."""
+    from ..field_sec2 import _Format
+
+    out = ["// Generated by eccoxide_tpu_torch/ops/build.py (pow_sec2_source) from",
+           "// field_sec2._Format.FOLD: the pow_sec2 kernel (csrc/pow_sec2.cuh) for",
+           f"// the SEC2 coordinate primes of {n} limbs.",
+           '#include "pow_sec2.cuh"', ""]
+    for name, p in pow_sec2_primes(n):
+        fold = _Format(p).FOLD
+        rows = ",\n".join("      {" + ", ".join(f"{v:#x}u" for v in row) + "}" for row in fold)
+        out += [f"// p = {p:#x}",
+                f"struct {name} {{",
+                f"  static constexpr int N = {n};",
+                "  static constexpr uint32_t kFold[N][N] = {",
+                rows + "};",
+                "};",
+                f"POW_SEC2_ENTRY({name})", ""]
+    return "\n".join(out)
+
+
 def _kernel_job(name: str) -> _Job:
     nvcc = _nvcc()
     src = KERNEL_SOURCES[name]
+    if src.parent == GEN_DIR:
+        text = pow_sec2_source(int(name.rsplit("_", 1)[1]))
+        if not src.exists() or src.read_text() != text:
+            GEN_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
     return _Job(
         f"eccoxide_{name}",
-        lambda out: [nvcc, *NVCC_FLAGS, "-o", out, str(src)],
+        lambda out: [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", out, str(src)],
         [src, *KERNEL_DEPS[name]], NVCC_FLAGS)
 
 
@@ -141,8 +192,10 @@ _ENTRY_POINTS = {
               "ed_double_launch": [_vp, _vp, _i32, _i32, _i64, _vp],
               "pow_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
     "pow448": {"pow448_launch": [_vp, _vp, _vp, _i32, _i64, _vp]},
-    "pow_sec2": {f"pow_sec2_launch_{n}": [_vp, _vp, _vp, _i32, _vp, _i64, _vp]
-                 for n in POW_SEC2_LIMBS},
+    "imad_probe": {"imad_probe_launch": [_vp, ctypes.c_uint32, _i32, _i32, _vp]},
+    **{f"pow_sec2_{n}": {f"pow_sec2_launch_{name}": [_vp, _vp, _vp, _i32, _i64, _vp]
+                         for name, _ in pow_sec2_primes(n)}
+       for n in POW_SEC2_LIMBS},
 }
 
 

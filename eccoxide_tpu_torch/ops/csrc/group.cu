@@ -182,8 +182,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // Replaces ops/pallas_group.py _pow_call (pallas_pow): x^e for a public
 // exponent given as 4-bit digits, most significant first. Per digit: four
-// squarings and one multiply by table[digit]; the first digit loads the
-// table entry. Bound on the H100: operations (21,240 32x32->64
+// squarings and, unless the digit is 0 (a branch on the public exponent,
+// the same for every thread), one multiply by table[digit]; the first
+// digit loads the table entry. Bound on the H100: operations (21,240 32x32->64
 // multiply-adds per lane for e = (p-5)/8: 248 squarings of 55 products and
 // 76 products of 100, against 80 bytes), so nothing but the input and
 // output touches device memory in bulk.
@@ -210,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
     fe25519::sq(acc, acc);
     fe25519::sq(acc, acc);
     fe25519::sq(acc, acc);
-    fe25519::mul(acc, acc, tab[__ldg(digits + i)]);
+    const int d = __ldg(digits + i);
+    if (d != 0) fe25519::mul(acc, acc, tab[d]);
   }
   fe25519::store(o, acc, W, lane);
 }

@@ -24,17 +24,20 @@ constexpr int kThreads = 128;
 // Replaces ops/pallas_group.py _pow_call (pallas_pow) instantiated for the
 // field of curve448 (curves/curve448.py FQ): x^e for a public exponent
 // given as 4-bit digits, most significant first, the chain of
-// group.cu pow_kernel. Per digit: four squarings and one multiply by
-// table[digit]; the first digit loads the table entry. Bound on the H100:
-// operations (for e = p - 2: 14 products of 256 multiply-adds for the
-// table, then 111 digits of 4 squarings of 136 and one product of 256,
-// 92,384 multiply-adds per lane against 128 bytes).
+// group.cu pow_kernel. Per digit: four squarings and, unless the digit is
+// 0, one multiply by table[digit]; the first digit loads the table entry.
+// Bound on the H100: operations (for e = p - 2: 14 products of 256
+// multiply-adds for the table, then 111 digits of 4 squarings of 136 and
+// one product of 256, 92,384 multiply-adds per lane against 128 bytes).
+// The products and squarings run by halves with the fold merged into the
+// columns (fe448.cuh).
 //
 // The table x^0..x^15 (1 KB per thread) sits in local memory: its index
 // changes at run time, so it cannot be registers. Its index is a digit of
 // the public exponent, the same for every thread, so the per-thread
-// slices are read coalesced, and the kernel takes no branch and no address
-// from the base x: it is constant-time in x.
+// slices are read coalesced; the branch on a zero digit is on the
+// exponent too. The kernel takes no branch and no address from the base
+// x: it is constant-time in x.
 __global__ void __launch_bounds__(kThreads)
     pow448_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ o,
                   const int32_t* __restrict__ digits, int ndig, int64_t W) {
@@ -50,7 +53,8 @@ __global__ void __launch_bounds__(kThreads)
     fe448::sq(acc, acc);
     fe448::sq(acc, acc);
     fe448::sq(acc, acc);
-    fe448::mul(acc, acc, tab[__ldg(digits + i)]);
+    const int d = __ldg(digits + i);
+    if (d != 0) fe448::mul(acc, acc, tab[d]);
   }
   fe448::store(o, acc, W, lane);
 }

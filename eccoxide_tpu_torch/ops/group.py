@@ -18,14 +18,14 @@ The wrappers, each with its plain PyTorch version beside it:
   JAX package's pow kernel instantiated for the field of curve448;
 - ``pow_sec2_kernel(f, x, e)``: the same chain over a SEC2 coordinate
   field f (``field_sec2.Field``), the JAX package's pow kernel
-  instantiated for the 15 SEC2 primes: one kernel template on the limb
-  count, the field's fold matrix an operand.
+  instantiated for the 15 SEC2 primes: one kernel instance per prime, its
+  fold matrix compiled in (``build.pow_sec2_source``).
 
 Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
 ``field.py``); field batches are ``(10, *batch)``, ``(16, *batch)`` for
 FQ448, ``(f.n, *batch)`` for a SEC2 field. A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches its kernel
-(``csrc/group.cu``, ``csrc/pow448.cu``, ``csrc/pow_sec2.cu``) or raises. Each wrapper counts its launches in a plain
+(``csrc/group.cu``, ``csrc/pow448.cu``, ``csrc/pow_sec2.cuh``) or raises. Each wrapper counts its launches in a plain
 integer attribute ``launches``, and ``ed_add`` splits its count by mode in
 ``ed_add.launches_by_mode``; nothing else touches the counts.
 
@@ -140,9 +140,12 @@ def exp_digits(e: int) -> list[int]:
 
 
 def _pow_plain(f, x, e: int):
-    """x^e over field f: table x^0..x^15, then per digit 4 squarings and 1
-    multiply (group.cu pow_kernel, pow448.cu pow448_kernel, pow_sec2.cu
-    pow_sec2_kernel)."""
+    """x^e over field f: table x^0..x^15, then per digit 4 squarings and,
+    unless the digit is 0, 1 multiply (group.cu pow_kernel, pow448.cu
+    pow448_kernel, pow_sec2.cuh pow_sec2_kernel). e is public, so skipping
+    the product by x^0 depends on nothing secret; it changes the limbs (a
+    product's carry and fold do not run), which is why the kernels and
+    this chain share the rule."""
     if e == 0:
         return f.one(x.shape[1:], x.device)
     tab = [f.one(x.shape[1:], x.device), x]
@@ -153,7 +156,8 @@ def _pow_plain(f, x, e: int):
     for d in dig[1:]:
         for _ in range(4):
             acc = f.square(acc)
-        acc = f.mul(acc, tab[d])
+        if d:
+            acc = f.mul(acc, tab[d])
     return acc
 
 
@@ -254,12 +258,10 @@ def _digits_on(e: int, device) -> torch.Tensor:
     return t
 
 
-def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper,
-         extra=()) -> torch.Tensor:
+def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper) -> torch.Tensor:
     """x^e over field f for an int32 (f.n, *batch) batch and a public
     e >= 0: the plain version on a CPU tensor, else one launch of the C
-    entry point ``entry`` of kernel library ``lib``, which takes the
-    tensors ``extra`` (on x's device) after the digits."""
+    entry point ``entry`` of kernel library ``lib``."""
     if x.dtype != torch.int32 or x.dim() < 1 or x.shape[0] != f.n:
         raise ValueError(f"expected int32 ({f.n}, *batch), got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -276,8 +278,8 @@ def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper,
     dig = _digits_on(e, x.device)
     out = torch.empty_like(x)
     launch = getattr(build.kernels(lib), entry)
-    rc = launch(x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(),
-                *(t.data_ptr() for t in extra), w, _stream(x.device))
+    rc = launch(x.data_ptr(), out.data_ptr(), dig.data_ptr(), dig.numel(), w,
+                _stream(x.device))
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -302,11 +304,11 @@ pow448_kernel.launches = 0
 def pow_sec2_kernel(f, x: torch.Tensor, e: int) -> torch.Tensor:
     """x^e over the SEC2 field f (``field_sec2.Field``) for an int32
     (f.n, *batch) batch and a public e >= 0; on the card the kernel
-    instance for f.n limbs, with f's fold matrix."""
-    if f.n not in build.POW_SEC2_LIMBS:
-        raise ValueError(f"no pow_sec2 kernel for {f.n} limbs")
-    return _pow(f, x, e, "pow_sec2", f"pow_sec2_launch_{f.n}", pow_sec2_kernel,
-                (f.fold_table(x.device),))
+    instance of f's prime."""
+    name = build.POW_SEC2_INSTANCES.get(f.p)
+    if name is None:
+        raise ValueError(f"no pow_sec2 kernel for p = {f.p:#x}")
+    return _pow(f, x, e, f"pow_sec2_{f.n}", f"pow_sec2_launch_{name}", pow_sec2_kernel)
 
 
 pow_sec2_kernel.launches = 0

@@ -92,10 +92,13 @@ def verify_batch_host(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],
                       rng: np.random.Generator | None = None, device="cuda",
                       tables: base.VerifyTables | None = None) -> list[bool]:
     """Batch verify on ``device``; on rejection, the per-signature verifier
-    on the same device says which signatures failed."""
+    on the same device says which signatures failed. An empty batch is
+    ``[]``, as ``verify_host`` gives, with no device work."""
     dev = base.resolve_device(device)
-    tables = tables if tables is not None else base.VerifyTables(dev)
     B = len(pks)
+    if B == 0:
+        return []
+    tables = tables if tables is not None else base.VerifyTables(dev)
     pkc, rc, sc, kwc = base.host_inputs(pks, msgs, sigs, dev)
     z = torch.from_numpy(sample_z(B, rng)).to(dev)
     # 2^c buckets pay off once each window has ~2^c points to amortize them

@@ -1,4 +1,4 @@
-"""The SEC2 pow kernel on the card: every limb count's instance against its
+"""The SEC2 pow kernel on the card: every prime's instance against its
 plain version limb for limb, on the exponents the SEC2 path uses, and the
 SEC2 path on the card against the CPU. Marked ``cuda``; every test skips
 inside its body when no CUDA device is present. Run on a machine with the
@@ -31,7 +31,7 @@ def test_pow_sec2_equals_plain_for_every_field():
         gen = torch.Generator().manual_seed(W)
         for name in sec2.ALL:
             f = sec2.get_curve(name).field
-            seen.add(f.n)
+            seen.add(group.build.POW_SEC2_INSTANCES[f.p])
             top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64)
             x = (torch.randint(0, 1 << 62, (f.n, W), generator=gen) % (top[:, None] + 1)).to(torch.int32)
             if W > 1:
@@ -43,7 +43,7 @@ def test_pow_sec2_equals_plain_for_every_field():
                 assert torch.equal(got.cpu(), group.pow_sec2_plain(f, x, e)), (name, W, tag)
             launched = group.launches()["pow_sec2_kernel"]
             assert launched == (len(f.path_exponents()) + 1 if W else 0), (name, W)
-    assert seen == set(group.build.POW_SEC2_LIMBS)
+    assert seen == set(group.build.POW_SEC2_INSTANCES.values())
 
 
 def test_sec2_path_on_the_card_matches_the_cpu():

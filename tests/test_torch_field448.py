@@ -76,11 +76,16 @@ def test_bytes_and_canonical_mask():
 
 
 def test_pow448_plain_and_inverse():
-    """x^(p-2) and a short exponent on the CPU (the plain version, no
-    launch); x x^(p-2) = 1 except for 0, whose inverse is 0."""
-    x, _ = _operands(2, B=10)
+    """x^(p-2), a short exponent and one with zero digits (no product on
+    them) on the CPU (the plain version, no launch), TIGHT and equal to
+    Python's pow; x x^(p-2) = 1 except for 0, whose inverse is 0. The
+    kernel's columns by halves equal the fold's on these limbs."""
+    x, y = _operands(2, B=10)
+    for a, b in zip(x.T.tolist(), y.T.tolist()):
+        assert f448.mul_cols_by_halves(a, b) == f448.mul_col_bounds(a, b)
+        assert f448.mul_cols_by_halves(a, a) == f448.mul_col_bounds(a, a)
     group.reset_launches()
-    for e in (P - 2, 0x1234):
+    for e in (P - 2, 0x1234, 0x1000F):
         got = FQ448.pow_const(x, e)
         assert torch.equal(got, group.pow448_plain(x, e)) and _tight(got)
         assert [v % P for v in _ints(got)] == [pow(v, e, P) for v in _ints(x)]

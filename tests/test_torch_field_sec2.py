@@ -8,14 +8,15 @@ overflow assertions of each prime run when its field is built. (Three
 tests, each over all 15 primes: see test_torch_sign.py for why.)"""
 
 import random
+import re
 
 import pytest
 import torch
 
 from eccoxide_tpu_torch.curves import sec2
-from eccoxide_tpu_torch.field_sec2 import MUL_SMALL_MAX
+from eccoxide_tpu_torch.field_sec2 import MUL_SMALL_MAX, M, W
 from eccoxide_tpu_torch.limbs import limbs_to_ints
-from eccoxide_tpu_torch.ops import group
+from eccoxide_tpu_torch.ops import build, group
 
 
 def _field(name):
@@ -38,6 +39,40 @@ def _tight(f, t):
     """Limbs within TIGHT and values within V_TIGHT."""
     limbs = ((t >= 0) & (t <= torch.tensor(f.fmt.TIGHT, dtype=torch.int32)[:, None])).all()
     return bool(limbs) and max(limbs_to_ints(t, f.widths)) <= f.fmt.V_TIGHT
+
+
+def _kernel_folds():
+    """{instance name: fold matrix} as compiled into the pow_sec2 kernels,
+    read back from the generated sources."""
+    out = {}
+    for n in build.POW_SEC2_LIMBS:
+        src = build.pow_sec2_source(n)
+        for name, body in re.findall(r"struct (\w+) \{(.*?)\};\nPOW_SEC2_ENTRY\(\1\)", src, re.S):
+            assert f"static constexpr int N = {n};" in body
+            rows = re.findall(r"\{([^{}]*)\}", body)
+            out[name] = [[int(v.rstrip("u"), 16) for v in r.split(",")] for r in rows]
+    return out
+
+
+def _scan_mul(f, a, b):
+    """fe_sec2.cuh's product on Python ints: columns in product-scanning
+    order through the two-round carry window (Carry2), then the fold and
+    its carry the same way over the n output limbs."""
+    n, fold = f.n, f.fmt.FOLD
+
+    def window(cols):
+        out, c1, c2 = [], 0, 0
+        for col in cols[:-1]:
+            h1 = (col & M) + c1
+            c1 = col >> W
+            out.append((h1 & M) + c2)
+            c2 = h1 >> W
+        return out + [cols[-1] + c1 + c2]
+
+    h = window([sum(a[i] * b[k - i] for i in range(n) if 0 <= k - i < n)
+                for k in range(2 * n)])
+    assert max(h) < 2**32
+    return window([h[i] + sum(h[n + j] * fold[j][i] for j in range(n)) for i in range(n)])
 
 
 def _nonsquares(p, k=3):
@@ -75,17 +110,26 @@ def test_ring_ops_and_canonical_form_against_ints():
 
 
 def test_pow_inverse_and_square_roots_against_ints():
-    """The plain pow chain (no launch on the CPU), the Fermat inverse
-    against the binary-GCD inverse, and sqrt / is_square of every kind:
-    p = 3 mod 4, Atkin for p224k1, Tonelli-Shanks for p224r1."""
+    """The plain pow chain (no launch on the CPU) on the path's exponents,
+    whose zero digits take no product, the Fermat inverse against the
+    binary-GCD inverse, and sqrt / is_square of every kind: p = 3 mod 4,
+    Atkin for p224k1, Tonelli-Shanks for p224r1. The pow kernel's compiled
+    fold constants equal the format's, and its product schedule (a Python
+    model of fe_sec2.cuh) equals Field.mul limb for limb."""
     group.reset_launches()
     kinds = set()
+    folds = _kernel_folds()
+    assert set(folds) == set(build.POW_SEC2_INSTANCES.values())
     for curve in sec2.ALL:
         f = _field(curve)
         p = f.p
-        x, _ = _operands(f, 2 * len(curve), B=6)
+        assert folds[build.POW_SEC2_INSTANCES[p]] == f.fmt.FOLD, curve
+        x, y = _operands(f, 2 * len(curve), B=6)
+        xl, yl = x.T.tolist(), y.T.tolist()
+        assert f.mul(x, y).T.tolist() == [_scan_mul(f, a, b) for a, b in zip(xl, yl)], curve
+        assert f.square(x).T.tolist() == [_scan_mul(f, a, a) for a in xl], curve
         xi = limbs_to_ints(x, f.widths)
-        for e in (p - 2, 0x1234):
+        for e in (*f.path_exponents().values(), 0x1234):
             got = f.pow_const(x, e)
             assert torch.equal(got, group.pow_sec2_plain(f, x, e)) and _tight(f, got)
             assert f.decode_ints(got) == [pow(v, e, p) for v in xi], curve

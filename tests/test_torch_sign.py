@@ -22,6 +22,7 @@ from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 from eccoxide_tpu_torch.params._intcurve import ECurve
 from eccoxide_tpu_torch.protocol import api
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
+from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 from test_ed25519 import RFC_VECTORS
 
 P, L = tc.P, tc.L
@@ -38,15 +39,17 @@ def _raw(key) -> bytes:
 def test_sign_host_equals_cryptography_and_rfc8032():
     """RFC 8032 tests 1-3, then 12 random keys with messages across the
     SHA-512 block edges; every signature byte-equal to `cryptography`, and
-    the port's own verifier takes them and refuses a tampered one."""
+    the port's own verifier takes them and refuses a tampered one. An
+    empty batch gives [] from both verifiers and both key entry points."""
     rng = random.Random(8032)
     sks = [v[0] for v in RFC_VECTORS]
     msgs = [v[2] for v in RFC_VECTORS]
     for n in (0, 1, 31, 32, 33, 63, 64, 111, 112, 127, 128, 240):
         sks.append(bytes(rng.randrange(256) for _ in range(32)))
         msgs.append(bytes(rng.randrange(256) for _ in range(n)))
-    pks = tpe.public_keys_host(sks, device="cpu")
-    sigs = tpe.sign_host(sks, msgs, device="cpu")
+    sign_tables, verify_tables = tpe.SignTables("cpu"), tpe.VerifyTables("cpu")
+    pks = tpe.public_keys_host(sks, "cpu", sign_tables)
+    sigs = tpe.sign_host(sks, msgs, "cpu", sign_tables)
     assert pks[:3] == [v[1] for v in RFC_VECTORS]
     assert sigs[:3] == [v[3] for v in RFC_VECTORS]
     keys = [Ed25519PrivateKey.from_private_bytes(sk) for sk in sks]
@@ -55,7 +58,11 @@ def test_sign_host_equals_cryptography_and_rfc8032():
     assert sigs[5] == oracle.sign(sks[5], msgs[5])
     tampered = sigs[4][:40] + bytes([sigs[4][40] ^ 1]) + sigs[4][41:]
     assert tpe.verify_host(pks + pks[4:5], msgs + msgs[4:5], sigs + [tampered],
-                           device="cpu") == [True] * len(sks) + [False]
+                           "cpu", verify_tables) == [True] * len(sks) + [False]
+    assert tpe.verify_host([], [], [], "cpu", verify_tables) == []
+    assert tpb.verify_batch_host([], [], [], device="cpu", tables=verify_tables) == []
+    assert tpe.public_keys_host([], "cpu", sign_tables) == tpe.sign_host(
+        [], [], "cpu", sign_tables) == []
 
 
 def _scalar_cols(ks):
