@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: Ed25519 verification,
-key generation and signing, X25519 and X448, and the 15 SEC2 curves.
+key generation and signing, X25519 and X448, the 15 SEC2 curves,
+ristretto255, the field API and the MSM.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,19 @@ fixed lanes), P-256 and secp256k1 key generation and ECDH at B=32768
 (comb ``mul_base`` and SEC1 ``compress``; ``decompress``, CT
 ``scalar_mul``, ``to_affine``; both ways, NIST or sage KATs, bad
 encodings in fixed lanes) and the other 13 SEC2 curves at B=256 against
-the integer oracle. It counts the kernel launches of each path, with the counts
-set to 0 just before it, and times kernels, plain versions and paths. It
+the integer oracle, ristretto255 at B=32768 (comb ``mul_base``,
+``compress``, ``decompress`` with the RFC 9496 A.1 and A.2 encodings in
+fixed lanes, ``from_uniform_bytes`` with the A.3 inputs; 64 lanes against
+the oracle), the JAX ``Field`` API on FL, FQ, FQ448 and the 15 SEC2 group
+orders at B=32768 (inverse, square roots, Euler's test, wide reduction;
+64 lanes against Python ints; the pow kernel's instances of l and of the
+orders against their plain version), and ``msm_local`` with c=8 at
+B=32768 on edwards25519 and P-256 (points [a_i]G from the comb, the sum
+against the oracle's [sum s_i a_i]G). It counts the kernel launches of each path, with the counts
+set to 0 just before it, records the shape of each launch (width in lanes,
+mode, run length, field and exponent) and holds the kernel against its
+plain version at every such shape the checks before the paths did not
+cover, and times kernels, plain versions and paths. It
 measures the card's rate of 32x32->64 multiply-adds (IMAD.WIDE.U32, the pow
 kernels' product instruction) with a probe kernel (ops/probe.py), and prices
 every operation bound at the lower of that rate and the data sheet's 32-bit
@@ -66,6 +78,14 @@ E_SPARSE = 0x1000F       # one with zero digits (no product on them)
 # (first lane, width) of the SEC2 pow kernel's checks: widths 0, 1 (the
 # largest limbs, then a random lane), 127, 128, 129 and B
 SEC2_CHECK_LANES = ((0, 0), (0, 1), (1, 1), (0, 127), (0, 128), (0, 129), (0, B))
+# the same for the instances of the group orders and of l: widths 0, 1 (twice),
+# 511, 512, 513, 768 and B
+ORDER_CHECK_LANES = ((0, 0), (0, 1), (1, 1), (0, 511), (0, 512), (0, 513), (0, 768), (0, B))
+FIELD_API_LANES = 64     # lanes of the field_api phase held against Python ints
+BINGCD_LANES = 256       # lanes of the binary-GCD inverse (plain torch, thousands of launches)
+MSM_C = 8
+R_DISTINCT = 512         # distinct oracle encodings tiled over the ristretto255 decode batch
+BINGCD_FIELDS = ("FL", "FQ", "FQ448", "p256r1_n", "p521r1_n")
 
 
 def sec2_exponents(f) -> dict:
@@ -205,8 +225,9 @@ PORT_KERNELS = ("ed_add_kernel", "ed_double_kernel", "pow_kernel", "pow448_kerne
                 "pow_sec2_kernel")
 PROBE_KERNEL = "imad_probe_kernel"
 # a kernel's name in ptxas and SASS listings: the pow_sec2 instances are
-# told apart by their prime (template argument I<len><name>E, e.g. I6p256r1E)
-_KERNEL_RE = "(" + "|".join(PORT_KERNELS + (PROBE_KERNEL,)) + r")(?:I\d+(p\d+[a-z]\d)E)?"
+# told apart by their prime (template argument I<len><name>E, e.g. I6p256r1E,
+# I8p256r1_nE for the group order of P-256, I6l25519E)
+_KERNEL_RE = "(" + "|".join(PORT_KERNELS + (PROBE_KERNEL,)) + r")(?:I\d+([a-z][a-z0-9_]*)E)?"
 SEC2_PATH_B = 256        # lanes of the 13 other SEC2 curves
 SEC2_ORACLE_LANES = 16
 SASS_OPS = ("IMAD.WIDE", "IMAD", "SHF", "IADD3", "LDL", "STL")
@@ -362,13 +383,24 @@ def main() -> int:
     from eccoxide_tpu_torch.curves import sec2
     from eccoxide_tpu_torch.limbs import windows_from_bytes_le
     from eccoxide_tpu_torch.params.comb import get_weierstrass_comb
-    from eccoxide_tpu_torch.field import FQ, P, TIGHT
+    from eccoxide_tpu_torch.curves import ristretto255 as rz
+    from eccoxide_tpu_torch.field import FL, FQ, L, P, TIGHT
+    from eccoxide_tpu_torch.field_sec2 import field_of
+    from eccoxide_tpu_torch.parallel.msm import msm_local
+    from eccoxide_tpu_torch.params.comb import mul_base as mul_base_ed
     from eccoxide_tpu_torch.field448 import FQ448
     from eccoxide_tpu_torch.ops import build, group, sha512
     from eccoxide_tpu_torch.protocol import ed25519 as pe
     from eccoxide_tpu_torch.protocol import ed25519_batch as pb
     from eccoxide_tpu_torch.protocol import x448 as px448
     from eccoxide_tpu_torch.protocol import x25519 as px25519
+
+    # the fields of the pow_sec2 instances added with the field API (the
+    # curves' scalar fields and l, FL's pow), and every instance's field by
+    # instance name
+    order_fields = [sec2.get_curve(c).scalar for c in sec2.ALL] + [field_of(L)]
+    inst_fields = {build.POW_SEC2_INSTANCES[f.p]: f
+                   for f in [sec2.get_curve(c).field for c in sec2.ALL] + order_fields}
 
     dev = torch.device("cuda", 0)
     card_line = smi("name,power.limit")
@@ -468,9 +500,11 @@ def main() -> int:
                "host_us_per_call": host_us_per_call(k_fn),
                "plain_ms": events_ms(p_fn, 3),
                "bound_ms": max(ops_ms, bytes_ms),
+               "x_bound": None,
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "ops_rate": bound_rate,
                "madds_per_lane": ops, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        row["x_bound"] = row["ms"] / row["bound_ms"]
         torch.cuda.synchronize()
         return row
 
@@ -510,7 +544,10 @@ def main() -> int:
     e_sqrt, e_inv = (P - 5) // 8, P - 2
     e_inv448 = field448.P - 2
     ident = pe.ED.identity((1,), dev).xyzt[..., 0]
-    for W in CHECK_WIDTHS + (B, MSM_LEVEL0):
+
+    def point_inputs(W):
+        """p, q and an affine q of W lanes: random multiples, with the
+        identity, P + P, P + (-P) and the largest TIGHT limbs in lanes 0..3."""
         p = rand_points(W)
         q = rand_points(W)
         if W >= 1:
@@ -524,6 +561,62 @@ def main() -> int:
         q_xyt = rand_affine(W)
         if W >= 4:
             q_xyt[:, :, 3] = max_fe(1)[:, 0]
+        return p, q, q_xyt
+
+    def field_input(f, W):
+        """W lanes of f's limbs, random within the largest limbs f's pow
+        kernel takes, with the largest in lane 0 (lane 1 for FQ and FQ448)
+        and zero in lane 2 (lane 0)."""
+        if f is FQ or f is FQ448:
+            x = rand_fe(W) if f is FQ else rand_fe448(W)
+            if W >= 3:
+                x[:, 0] = 0
+                x[:, 1] = (max_fe(1) if f is FQ else max_fe448(1))[:, 0]
+            return x
+        top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
+        x = (torch.randint(0, 1 << 62, (f.n, W), generator=gen, device=dev)
+             % (top.view(-1, 1) + 1)).to(torch.int32)
+        if W >= 1:
+            x[:, 0] = top.to(torch.int32)
+        if W >= 3:
+            x[:, 2] = 0
+        return x
+
+    pow_plain = {"pow_const_kernel": lambda f, x, e: group.pow_const_plain(x, e),
+                 "pow448_kernel": lambda f, x, e: group.pow448_plain(x, e),
+                 "pow_sec2_kernel": group.pow_sec2_plain}
+    pow_kernel = {"pow_const_kernel": lambda f, x, e: group.pow_const_kernel(x, e),
+                  "pow448_kernel": lambda f, x, e: group.pow448_kernel(x, e),
+                  "pow_sec2_kernel": group.pow_sec2_kernel}
+
+    def check_shape(name, shape):
+        """Kernel `name` against its plain version at one launch shape
+        (``group.launch_shapes``), on fresh inputs of that width."""
+        if name == "ed_add":
+            mode, W = shape
+            p, q, q_xyt = point_inputs(W)
+            if mode == "mixed":
+                got, want = group.ed_add_mixed(p, q_xyt), group.ed_add_mixed_plain(p, q_xyt)
+            else:
+                got, want = group.ed_add(p, q, mode == "full"), group.ed_add_plain(p, q, mode == "full")
+            compare(name, got, want, W, f"path shape {mode}")
+        elif name == "ed_double":
+            k, need_t, W = shape
+            p = point_inputs(W)[0]
+            compare(name, group.ed_double(p, need_t, k), group.ed_double_plain(p, need_t, k),
+                    W, f"path shape k={k} need_t={need_t}")
+        else:
+            f, e, W = shape
+            x = field_input(f, W)
+            compare(name, pow_kernel[name](f, x, e), pow_plain[name](f, x, e), W,
+                    f"path shape {getattr(f, 'name', name)} e={e:#x}", f.canon)
+
+    # every launch of this phase is held against the plain version: its
+    # shapes are the checked ones, and a path's other shapes are checked
+    # after the paths (phase path_shapes_vs_plain)
+    group.reset_launches()
+    for W in CHECK_WIDTHS + (B, MSM_LEVEL0):
+        p, q, q_xyt = point_inputs(W)
         for need_t in (True, False):
             compare("ed_add", group.ed_add(p, q, need_t), group.ed_add_plain(p, q, need_t),
                     W, f"need_t={need_t}")
@@ -534,37 +627,31 @@ def main() -> int:
                 compare("ed_double", group.ed_double(p, need_t, k),
                         group.ed_double_plain(p, need_t, k), W, f"k={k} need_t={need_t}")
         if W in CHECK_WIDTHS or W == B:
-            x = rand_fe(W)
-            if W >= 3:
-                x[:, 0] = 0
-                x[:, 1] = max_fe(1)[:, 0]
+            x = field_input(FQ, W)
             for e, tag in ((e_sqrt, "(p-5)/8"), (e_inv, "p-2"), (E_SPARSE, hex(E_SPARSE))):
                 compare("pow_const_kernel", group.pow_const_kernel(x, e),
                         group.pow_const_plain(x, e), W, f"e={tag}")
-            y = rand_fe448(W)
-            if W >= 3:
-                y[:, 0] = 0
-                y[:, 1] = max_fe448(1)[:, 0]
+            y = field_input(FQ448, W)
             for inp, kind in ((y, "random"), (max_fe448(W), "max limbs")):
                 for e, tag in ((e_inv448, "p-2"), (E_SHORT, hex(E_SHORT)), (E_SPARSE, hex(E_SPARSE))):
                     compare("pow448_kernel", group.pow448_kernel(inp, e),
                             group.pow448_plain(inp, e), W, f"{kind} e={tag}")
         torch.cuda.synchronize()
-    # the SEC2 pow kernel, every field: one plain call at W = B per exponent,
-    # the kernel at each check width on a prefix (lanes are independent);
-    # lane 0 holds the largest limbs the format allows, lane 2 zero
-    for name in sec2.ALL:
-        f = sec2.get_curve(name).field
-        top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
-        x = (torch.randint(0, 1 << 62, (f.n, B), generator=gen, device=dev)
-             % (top.view(-1, 1) + 1)).to(torch.int32)
-        x[:, 0] = top.to(torch.int32)
-        x[:, 2] = 0
+    def pow_sec2_vs_plain(name, f, lanes):
+        """The SEC2 pow kernel's instance of f against its plain version:
+        one plain call at W = B per exponent, the kernel at each (first
+        lane, width) of `lanes` on a slice (lanes are independent); lane 0
+        holds the largest limbs the format allows, lane 2 zero."""
+        x = field_input(f, B)
         for tag, e in sec2_exponents(f).items():
             want = group.pow_sec2_plain(f, x, e)
-            for first, W in SEC2_CHECK_LANES:
+            for first, W in lanes:
                 compare("pow_sec2_kernel", group.pow_sec2_kernel(f, x[:, first:first + W].contiguous(), e),
                         want[:, first:first + W], W, f"{name} e={tag} lanes {first}..", f.canon)
+
+    for name in sec2.ALL:
+        pow_sec2_vs_plain(name, sec2.get_curve(name).field, SEC2_CHECK_LANES)
+    checked_shapes = group.launch_shapes()
     emit({"phase": "kernels_vs_plain", "tolerance": "exact on canonical limbs",
           "max_abs_err": max_err,
           "checks": {k: len(v) for k, v in checks.items()},
@@ -599,6 +686,12 @@ def main() -> int:
         raise RuntimeError("the integer oracle disagrees with the vectors")
 
     # -- phases 3 and 4: the main path, with launches counted ----------------
+    path_shapes = {k: set() for k in checked_shapes}
+
+    def note_path_shapes():
+        for k, v in group.launch_shapes().items():
+            path_shapes[k] |= v
+
     group.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -635,6 +728,7 @@ def main() -> int:
                                       device="cuda", tables=tables)
     torch.cuda.synchronize()
     counts = group.launches()
+    note_path_shapes()
     if rlc_ok != [True] * B:
         raise RuntimeError("verify_batch_host rejected a valid batch")
     # the valid batch must pass on the RLC equation alone: two decompressions,
@@ -655,9 +749,10 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the verify paths never launched: {counts}")
     path_counts = {"verify": verify_counts}
 
-    def counted(path, fn, want):
+    def counted(path, fn, want, add_mode="mixed"):
         """fn() with the launch counts set to 0 just before and read just
-        after; they must equal `want` (kernel -> launches, the others 0)."""
+        after; they must equal `want` (kernel -> launches, the others 0),
+        every add in `add_mode`."""
         group.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -665,11 +760,12 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = group.launches()
+        note_path_shapes()
         full = {k: want.get(k, 0) for k in got}
         if got != full:
             raise RuntimeError(f"{path} launched {got}, not {full}")
-        if want.get("ed_add") and group.ed_add.launches_by_mode["mixed"] != want["ed_add"]:
-            raise RuntimeError(f"{path}: adds {group.ed_add.launches_by_mode}, not all mixed")
+        if want.get("ed_add") and group.ed_add.launches_by_mode[add_mode] != want["ed_add"]:
+            raise RuntimeError(f"{path}: adds {group.ed_add.launches_by_mode}, not all {add_mode}")
         path_counts[path] = got
         return out, secs
 
@@ -901,15 +997,213 @@ def main() -> int:
                     "decompress(compress(P)) == P, all lanes valid",
           "curves": small})
 
+    # -- phase 10: ristretto255 at B ----------------------------------------------
+    from kats_rfc9496 import A1_MULTIPLES, A2_BAD, A3_UNIFORM
+
+    def byte_cols(rows_, width):
+        raw = np.frombuffer(b"".join(rows_), np.uint8).reshape(len(rows_), width)
+        return torch.from_numpy(raw.T.astype(np.int32)).to(dev)
+
+    def int_cols(ks, width):
+        return byte_cols([k.to_bytes(width, "little") for k in ks], width)
+
+    rng_ = np.random.default_rng(9496)
+    a1 = [bytes.fromhex(h) for h in A1_MULTIPLES]
+    a2 = [bytes.fromhex(h) for h in A2_BAD]
+    a3 = [(bytes.fromhex(i), bytes.fromhex(o)) for i, o in A3_UNIFORM]
+    oracle_lanes = [0, B - 1] + sorted(rng_.choice(np.arange(40, B - 1), ORACLE_LANES - 2,
+                                                   replace=False).tolist())
+    # mul_base: lanes 0..15 the A.1 multiples, then random scalars below l
+    r_ks = list(range(16)) + [int.from_bytes(rng_.bytes(40), "little") % L for _ in range(B - 16)]
+    r_sb = int_cols(r_ks, 32)
+    r_pts, _ = counted("ristretto_mul_base", lambda: rz.mul_base(r_sb), {"ed_add": PUBKEY_ADDS})
+    r_enc, _ = counted("ristretto_compress", lambda: rz.compress(r_pts), {"pow_const_kernel": 1})
+    enc_rows = col_rows(r_enc)
+    a1_ok = enc_rows[:16] == a1
+    enc_oracle_ok = all(enc_rows[j] == oracle.ristretto_compress(oracle.ristretto_mul(r_ks[j]))
+                        for j in oracle_lanes)
+    # decompress: oracle encodings of R_DISTINCT multiples tiled over B, the
+    # A.1 encodings in lanes 0..15 and the A.2 ones in lanes 16..32
+    r_distinct = [oracle.ristretto_compress(oracle.ristretto_mul(
+        int.from_bytes(rng_.bytes(40), "little") % L)) for _ in range(R_DISTINCT)]
+    dec_in = [r_distinct[j % R_DISTINCT] for j in range(B)]
+    dec_in[:16] = a1
+    dec_in[16:16 + len(a2)] = a2
+    dec_cols = byte_cols(dec_in, 32)
+    (r_dec, r_ok), _ = counted("ristretto_decompress", lambda: rz.decompress(dec_cols),
+                               {"pow_const_kernel": 1})
+    r_ok = r_ok.cpu().tolist()
+    bad_lanes = set(range(16, 16 + len(a2)))
+    rejected_ok = [j for j in range(B) if not r_ok[j]] == sorted(bad_lanes)
+    good = torch.tensor([j not in bad_lanes for j in range(B)], device=dev)
+    round_trip = bool(((rz.compress(r_dec) == dec_cols) | ~good).all())
+    # from_uniform_bytes: the A.3 inputs in lanes 0..6, random elsewhere
+    u_in = [rng_.bytes(64) for _ in range(B)]
+    u_in[:len(a3)] = [i for i, _ in a3]
+    u_cols = byte_cols(u_in, 64)
+    r_map, _ = counted("ristretto_from_uniform_bytes", lambda: rz.from_uniform_bytes(u_cols),
+                       {"pow_const_kernel": 1, "ed_add": 1}, add_mode="full")
+    map_rows = col_rows(rz.compress(r_map))
+    a3_ok = map_rows[:len(a3)] == [o for _, o in a3]
+    map_oracle_ok = all(map_rows[j] == oracle.ristretto_compress(
+        oracle.ristretto_from_uniform_bytes(u_in[j])) for j in oracle_lanes)
+    if not (a1_ok and enc_oracle_ok and rejected_ok and round_trip and a3_ok and map_oracle_ok):
+        raise RuntimeError(f"ristretto255: A.1 {a1_ok}, oracle encodings {enc_oracle_ok}, "
+                           f"A.2 rejected alone {rejected_ok}, round trip {round_trip}, "
+                           f"A.3 {a3_ok}, oracle maps {map_oracle_ok}")
+    ristretto_cores = {"ristretto_decompress": lambda: rz.decompress(dec_cols),
+                       "ristretto_compress": lambda: rz.compress(r_pts),
+                       "ristretto_from_uniform_bytes": lambda: rz.from_uniform_bytes(u_cols)}
+    r_runs = {name: host_rate(fn) for name, fn in ristretto_cores.items()}
+    emit({"phase": "ristretto255", "B": B, "a1_multiples": a1_ok, "a2_rejected_alone": rejected_ok,
+          "a3_map": a3_ok, "compress_decompress_round_trip": round_trip,
+          "oracle_lanes": len(oracle_lanes), "distinct_oracle_encodings": R_DISTINCT,
+          "launches_per_call": {p_: {k: v for k, v in path_counts[p_].items() if v}
+                                for p_ in ("ristretto_mul_base", "ristretto_compress",
+                                           "ristretto_decompress", "ristretto_from_uniform_bytes")},
+          "decompress_s": r_runs["ristretto_decompress"],
+          "decodes_per_s": B / statistics.median(r_runs["ristretto_decompress"]),
+          "compress_s": r_runs["ristretto_compress"],
+          "encodes_per_s": B / statistics.median(r_runs["ristretto_compress"]),
+          "from_uniform_bytes_s": r_runs["ristretto_from_uniform_bytes"],
+          "maps_per_s": B / statistics.median(r_runs["ristretto_from_uniform_bytes"])})
+
+    # -- phase 11: the JAX Field API on the port's fields ---------------------------
+    # values: random wide bytes reduced by from_wide_bytes_le, lanes 0..2 hold
+    # 0, 1 and p - 1; FIELD_API_LANES lanes against Python ints
+    api_fields = {"FL": (FL, "pow_sec2_kernel"), "FQ": (FQ, "pow_const_kernel"),
+                  "FQ448": (FQ448, "pow448_kernel"),
+                  **{f.name: (f, "pow_sec2_kernel") for f in order_fields[:-1]}}
+    api_ops = {"FL": ("inverse", "sqrt", "is_square"), "FQ": ("sqrt", "is_square"),
+               "FQ448": ("sqrt", "is_square"), **{f.name: ("inverse", "sqrt") for f in order_fields[:-1]}}
+    api_lanes = [0, 1, 2, B - 1] + sorted(rng_.choice(np.arange(3, B - 1), FIELD_API_LANES - 4,
+                                                      replace=False).tolist())
+    api_out, api_pows = {}, {}
+    for fname, (f, kernel) in api_fields.items():
+        wide = torch.from_numpy(rng_.integers(0, 256, (2 * f.n_bytes, B), dtype=np.int32)).to(dev)
+        x = f.from_wide_bytes_le(wide)
+        x[:, :3] = f.encode_ints([0, 1, f.p - 1], dev)
+        want_x = [int.from_bytes(bytes(c), "little") % f.p for c in wide[:, api_lanes].T.cpu().tolist()]
+        want_x[:3] = [0, 1, f.p - 1]
+        xs = f.decode_ints(x[:, api_lanes])
+        if xs != want_x:
+            raise RuntimeError(f"{fname}: from_wide_bytes_le differs from Python ints")
+        p_ = f.p
+        sq = f.square(x)
+        res = {}
+        for op in api_ops[fname]:
+            arg = x if op == "inverse" else sq
+            n_pow = 2 if op == "sqrt" and p_ % 8 == 1 else 1
+            res[op], _ = counted(f"{fname}_{op}", lambda: getattr(f, op)(arg), {kernel: n_pow})
+            api_pows[f"{fname}_{op}"] = n_pow
+        ok = True
+        if "inverse" in res:
+            ok &= f.decode_ints(res["inverse"][:, api_lanes]) == [pow(v, p_ - 2, p_) for v in xs]
+        if "sqrt" in res:
+            r, r_ok = res["sqrt"]
+            ok &= bool(r_ok.all()) and bool(f.eq(f.square(r), sq).all())
+            ok &= all(v * v % p_ == w * w % p_ for v, w in zip(f.decode_ints(r[:, api_lanes]), xs))
+            _, nr_ok = f.sqrt(x)
+            euler = [v == 0 or pow(v, (p_ - 1) // 2, p_) == 1 for v in xs]
+            ok &= nr_ok[api_lanes].cpu().tolist() == euler
+        if "is_square" in res:
+            # is_square of the squares (the counted call), then of x
+            ok &= bool(res["is_square"].all())
+            ok &= f.is_square(x)[api_lanes].cpu().tolist() == [
+                v == 0 or pow(v, (p_ - 1) // 2, p_) == 1 for v in xs]
+        if fname in BINGCD_FIELDS:
+            xb = x[:, :BINGCD_LANES]
+            ok &= f.decode_ints(f.inverse_bingcd(xb)) == f.decode_ints(f.inverse(xb))
+        if not ok:
+            raise RuntimeError(f"{fname}: the Field API differs from Python ints")
+        api_out[fname] = {"ops": list(api_ops[fname]), "limbs": f.n, "bingcd": fname in BINGCD_FIELDS}
+    # the pow kernel's instances of the group orders and of l, limb for limb
+    group.reset_launches()
+    for f in order_fields:
+        pow_sec2_vs_plain(f.name, f, ORDER_CHECK_LANES)
+    for k, v in group.launch_shapes().items():
+        checked_shapes[k] |= v
+    emit({"phase": "field_api", "B": B, "oracle_lanes": FIELD_API_LANES,
+          "bingcd_lanes": BINGCD_LANES, "fields": api_out, "pows_per_call": api_pows,
+          "order_instances_vs_plain": len(order_fields),
+          "pow_sec2_checks": len(checks["pow_sec2_kernel"]),
+          "pow_sec2_max_abs_err": max_err["pow_sec2_kernel"]})
+
+    # -- phase 12: msm_local over edwards25519 and P-256 ----------------------------
+    def msm_launches(B_, nbytes, c):
+        """ed_add and ed_double launches of msm_local on edwards25519: the
+        Blelloch sweeps (2 log2 B2), the (2^c - 1) total (a run of c
+        doublings and 1 add), the halving tree over 2^c - 1 partial sums, 1
+        add, then per window one run of c doublings and one add."""
+        nw = -(-nbytes * 8 // c)
+        nlev = max(0, (B_ - 1).bit_length())
+        tree, size = 0, (1 << c) - 1
+        while size > 1:
+            size, tree = size // 2 + size % 2, tree + 1
+        return {"ed_add": 2 * nlev + 1 + tree + 1 + nw, "ed_double": 1 + nw}
+
+    msm_rates, msm_cores, msm_out = {}, {}, {}
+    for cname in ("edwards25519", "p256r1"):
+        if cname == "edwards25519":
+            grp, order, nb = pe.ED, L, 32
+            a = [int.from_bytes(rng_.bytes(40), "little") % (L - 1) + 1 for _ in range(B)]
+            pts = mul_base_ed(int_cols(a, 32), sign_tables.comb)
+            want = msm_launches(B, nb, MSM_C)
+        else:
+            grp, o = sec2.get_curve(cname), oracle.sec2_curve(cname)
+            order, nb = o.order, grp.scalar.n_bytes
+            a = distinct_scalars(o, B, rng_)
+            pts = grp.mul_base(int_cols(a, nb), get_weierstrass_comb(grp).tables(dev))
+            want = {}
+        s_ = [int.from_bytes(rng_.bytes(nb), "little") for _ in range(B)]
+        s_[1] = 0
+        s_cols = int_cols(s_, nb)
+        out, _ = counted(f"msm_local_{cname}", lambda: msm_local(grp, pts, s_cols, c=MSM_C), want,
+                         add_mode="full")
+        k = sum(si * ai for si, ai in zip(s_, a)) % order
+        if cname == "edwards25519":
+            got = col_rows(grp.compress(out))[0]
+            exp = oracle._compress(oracle._mul(k, oracle.G))
+        else:
+            got = col_rows(grp.compress(out))[0]
+            exp = o.compress(o.mul_base(k))
+        if got != exp:
+            raise RuntimeError(f"msm_local on {cname} differs from the oracle")
+        msm_cores[f"msm_local_{cname}"] = (lambda g_=grp, p2=pts, sc=s_cols:
+                                           msm_local(g_, p2, sc, c=MSM_C))
+        runs = host_rate(msm_cores[f"msm_local_{cname}"])
+        msm_rates[cname] = {"msm_s": runs, "points_per_s": B / statistics.median(runs)}
+        msm_out[cname] = {"launches": {k_: v for k_, v in path_counts[f"msm_local_{cname}"].items() if v}}
+    emit({"phase": "msm_local", "B": B, "c": MSM_C,
+          "check": "compress(sum_i [s_i][a_i]G) == oracle compress([sum_i s_i a_i mod n]G)",
+          "curves": msm_out, **msm_rates})
+
+    # -- every launch shape of the paths against the plain version -----------
+    # the shapes the paths gave each kernel (group.launch_shapes over every
+    # counted run) that phase 2 and the order instances' checks did not hold
+    # against the plain version, held now
+    t0 = time.perf_counter()
+    unchecked = {k: path_shapes[k] - checked_shapes[k] for k in path_shapes}
+    for name, shapes in unchecked.items():
+        for shape in sorted(shapes, key=lambda s: [getattr(a, "p", a) for a in s]):
+            check_shape(name, shape)
+    emit({"phase": "path_shapes_vs_plain", "tolerance": "exact on canonical limbs",
+          "path_shapes": {k: len(v) for k, v in path_shapes.items()},
+          "checked_before": {k: len(path_shapes[k] & checked_shapes[k]) for k in path_shapes},
+          "checked_now": {k: len(v) for k, v in unchecked.items()},
+          "widths_checked_now": {k: sorted({s[-1] for s in v}) for k, v in unchecked.items()},
+          "max_abs_err": max_err, "s": time.perf_counter() - t0})
+
     # -- phase 8: kernel times -------------------------------------------------
     sources = {
-        "ed_add": "eccoxide_tpu/ops/pallas_group.py:92 (_add_call, via pallas_add :144)",
-        "ed_double": "eccoxide_tpu/ops/pallas_group.py:119 (_double_call, via pallas_double :161)",
-        "pow_const_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241)",
-        "pow448_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241, "
+        "ed_add": "eccoxide_tpu/ops/pallas_group.py:93 (_add_call, pallas_call :110, via pallas_add :144)",
+        "ed_double": "eccoxide_tpu/ops/pallas_group.py:120 (_double_call, pallas_call :135, via pallas_double :161)",
+        "pow_const_kernel": "eccoxide_tpu/ops/pallas_group.py:174 (_pow_call, pallas_call :222, via pallas_pow :241)",
+        "pow448_kernel": "eccoxide_tpu/ops/pallas_group.py:174 (_pow_call, pallas_call :222, via pallas_pow :241, "
                          "for the field of eccoxide_tpu/curves/curve448.py:15)",
-        "pow_sec2_kernel": "eccoxide_tpu/ops/pallas_group.py:173 (_pow_call, via pallas_pow :241, "
-                           "for the fields of eccoxide_tpu/curves/sec2.py:55)",
+        "pow_sec2_kernel": "eccoxide_tpu/ops/pallas_group.py:174 (_pow_call, pallas_call :222, via pallas_pow :241, "
+                           "for the fields of eccoxide_tpu/curves/sec2.py:55 and the scalar fields "
+                           "of :56, and for l, eccoxide_tpu/field.py:977-987)",
     }
     kernel_of = {"ed_add": "ed_add_kernel", "ed_double": "ed_double_kernel",
                  "pow_const_kernel": "pow_kernel", "pow448_kernel": "pow448_kernel",
@@ -955,7 +1249,7 @@ def main() -> int:
         # squaring is priced at its schoolbook terms and the nonzero entries
         # of the prime's fold matrix (field_sec2._Format.madds), no product
         # on a zero digit (pow_madds)
-        f = sec2.get_curve(name).field
+        f = inst_fields[name]
         e = f.path_exponents()[tag]
         top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64, device=dev)
         x = (torch.randint(0, 1 << 62, (f.n, W), generator=gen, device=dev)
@@ -973,9 +1267,9 @@ def main() -> int:
     # the exponents of is_square and sqrt
     sec2_timed = {name: ["p-2"] for name in ["p256r1"] + sorted(
         set(build.POW_SEC2_INSTANCES.values()) - {"p256r1"},
-        key=lambda c: (sec2.get_curve(c).field.n, c))}
+        key=lambda c: (inst_fields[c].n, c))}
     for name in ("p256r1", "p256k1", "p521r1"):
-        sec2_timed[name] = list(sec2.get_curve(name).field.path_exponents())
+        sec2_timed[name] = list(inst_fields[name].path_exponents())
 
     # the first case of each kernel is its row in the kernels line; the
     # Straus shapes (W = B) are also profiled alone, host-issued, to hold the
@@ -1042,6 +1336,8 @@ def main() -> int:
           "x25519_exchanges_per_s": B / statistics.median(core_runs["x25519_core"]),
           "x448_exchanges_per_s": B / statistics.median(core_runs["x448_core"]),
           "sec2": sec2_times,
+          "ristretto255": {k: B / statistics.median(v) for k, v in r_runs.items()},
+          "msm_local_points_per_s": {k: v["points_per_s"] for k, v in msm_rates.items()},
           **{f"{name}_s": runs for name, runs in core_runs.items()},
           "straus_verify_host_s": straus_runs,
           "straus_verifies_per_s": B / statistics.median(straus_runs),
@@ -1057,7 +1353,9 @@ def main() -> int:
     profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
                 "rlc_core": device_profile(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8)),
                 **{name: device_profile(fn) for name, fn in cores.items()},
-                "sec2_p256r1_exchange": device_profile(sec2_cores["p256r1"]["exchange"])}
+                "sec2_p256r1_exchange": device_profile(sec2_cores["p256r1"]["exchange"]),
+                **{name: device_profile(fn) for name, fn in ristretto_cores.items()},
+                **{name: device_profile(fn) for name, fn in msm_cores.items()}}
     emit({"phase": "profile", "card": card, "B": B, **profiles})
 
     # the kernels line: each kernel's first case, its graph-replay time held

@@ -7,7 +7,11 @@ of radix 2^25.5, FL as 16 limbs of 16 bits in the Montgomery domain with
 R = 2^256, and FQ448 as 16 limbs of 28 bits. The SEC2 coordinate fields
 are 12- or 13-bit limbs there (``JAX_SEC2``: standard domain, except the
 Montgomery domain of p112r1 and p112r2 with R = 2^120) and the port's
-28-bit format here (``field_sec2.py``). Both sides are numpy/torch
+28-bit format here (``field_sec2.py``); the SEC2 curves' scalar fields
+(the group orders, named ``<curve>_n`` here) are 12-bit limbs in the
+Montgomery domain there (``jax_sec2_format``) and the same 28-bit format
+here. Points: the JAX package's ``ExtPoint`` (x, y, z, t) of edwards25519
+and ``ProjPoint`` (X, Y, Z) of a SEC2 curve. Both sides are numpy/torch
 ``(n, B)`` int32 arrays; the conversion goes through Python ints, so it is
 for tests and one-off tables, not for a hot path.
 """
@@ -18,10 +22,13 @@ import numpy as np
 import torch
 
 from . import field448
+from .curves.edwards import ExtPoint
 from .curves.weierstrass import ProjPoint
 from .field import FL, FL_WIDTHS, FQ, L, P, R_FL, WIDTHS
 from .field448 import FQ448
+from .field_sec2 import Field
 from .limbs import ints_to_limbs, limbs_to_ints
+from .params.sec2_params import CURVES
 
 JAX_FQ = (20, 13)                 # (limbs, bits)
 JAX_FL = (22, 12)
@@ -37,6 +44,24 @@ JAX_SEC2 = {
     "p256k1": (20, 13, None), "p256r1": (20, 13, None),
     "p384r1": (30, 13, None), "p521r1": (44, 12, None),
 }
+
+SEC2_ORDERS = {c["order"] for c in CURVES.values()}
+
+
+def jax_sec2_format(field):
+    """(limbs, bits, Montgomery R or None) of the JAX package's field for a
+    SEC2 field of the port: a coordinate field from ``JAX_SEC2``, a group
+    order as the JAX scalar field of ``curves/sec2.py:56`` (Montgomery on
+    12-bit limbs, R = 2^(12 n) with n = ceil(bits / 12)); None for any
+    other field."""
+    if not isinstance(field, Field):
+        return None
+    if field.name in JAX_SEC2:
+        return JAX_SEC2[field.name]
+    if field.p in SEC2_ORDERS:
+        n = -(-field.bits // 12)
+        return n, 12, 1 << (12 * n)
+    return None
 
 
 def _jax_ints(arr, b: int) -> list[int]:
@@ -55,8 +80,9 @@ def from_jax_limbs(field, arr) -> torch.Tensor:
     if field is FQ448:
         vals = [v % field448.P for v in _jax_ints(arr, JAX_FQ448[1])]
         return torch.from_numpy(ints_to_limbs(vals, field448.WIDTHS))
-    if getattr(field, "name", None) in JAX_SEC2:
-        _, b, r = JAX_SEC2[field.name]
+    fmt = jax_sec2_format(field)
+    if fmt is not None:
+        _, b, r = fmt
         vals = _jax_ints(arr, b)
         if r is not None:
             vals = [v * pow(r, -1, field.p) for v in vals]
@@ -77,8 +103,9 @@ def to_jax_limbs(field, arr) -> np.ndarray:
     if field is FQ448:
         vals = [v % field448.P for v in limbs_to_ints(arr, field448.WIDTHS)]
         return ints_to_limbs(vals, (JAX_FQ448[1],) * JAX_FQ448[0])
-    if getattr(field, "name", None) in JAX_SEC2:
-        n, b, r = JAX_SEC2[field.name]
+    fmt = jax_sec2_format(field)
+    if fmt is not None:
+        n, b, r = fmt
         vals = [v * (r or 1) % field.p for v in limbs_to_ints(arr, field.widths)]
         return ints_to_limbs(vals, (b,) * n)
     if field is FL:
@@ -98,6 +125,17 @@ def tables_from_jax(xs, ys, ts):
         conv = from_jax_limbs(FQ, flat).numpy().T           # (N, 10)
         out.append(conv.reshape(a.shape[:-1] + (FQ.n,)))
     return tuple(out)
+
+
+def ext_point_from_jax(xyzt) -> ExtPoint:
+    """A JAX edwards25519 ``ExtPoint`` (x, y, z, t), each (20, B) -> the
+    port's ``ExtPoint`` (4, 10, B), the same projective coordinates."""
+    return ExtPoint(torch.stack([from_jax_limbs(FQ, c) for c in xyzt]))
+
+
+def ext_point_to_jax(P: ExtPoint):
+    """The port's ``ExtPoint`` -> (x, y, z, t) JAX limb arrays (20, B)."""
+    return tuple(to_jax_limbs(FQ, c) for c in P.with_t())
 
 
 def point_from_jax(field, xyz) -> ProjPoint:

@@ -34,6 +34,12 @@ class ExtPoint:
         self.has_t = has_t
 
     @property
+    def coords(self):
+        """The packed tensor under the name every point class of the port
+        shares (``ProjPoint.coords``), for code generic over the group."""
+        return self.xyzt
+
+    @property
     def x(self):
         return self.xyzt[0]
 

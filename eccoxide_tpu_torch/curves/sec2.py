@@ -5,14 +5,16 @@ its reference backs with constant-time code (``FIAT_TIER``) and the seven
 smaller ones (``SMALL_TIER``), all on the same batched engine. The JAX
 package picks a field engine per prime (``Field.solinas_ok``); the port's
 ``field_sec2.Field`` serves every prime with one format, so there is no
-choice to make.
+choice to make. A curve's ``scalar`` is the field of its group order
+(JAX ``curves/sec2.py:56``), ``field_sec2.field_of`` of the order, named
+after the curve with the suffix _n.
 """
 
 from __future__ import annotations
 
-from ..field_sec2 import Field
+from ..field_sec2 import Field, field_of
 from ..params.sec2_params import CURVES
-from .weierstrass import ScalarOrder, WeierstrassCurveSpec
+from .weierstrass import WeierstrassCurveSpec
 
 _cache: dict = {}
 
@@ -35,7 +37,7 @@ def get_curve(name: str) -> WeierstrassCurveSpec:
     a = c["a"] % p
     shape = "a0" if a == 0 else "am3" if a == p - 3 else "generic"
     spec = WeierstrassCurveSpec(
-        name=name, field=Field(name, p), scalar=ScalarOrder(c["order"]),
+        name=name, field=Field(name, p), scalar=field_of(c["order"]),
         a=c["a"], b_coeff=c["b"], gx=c["gx"], gy=c["gy"], shape=shape)
     _cache[name] = spec
     return spec

@@ -45,12 +45,18 @@ def _batched(op, *pairs):
 
 
 class ProjPoint:
-    """(X : Y : Z), packed as ``xyz`` (3, n, *batch); the identity has Z = 0."""
+    """(X : Y : Z), packed as ``xyz`` (3, n, *batch); the identity has Z = 0.
+    ``coords`` is the packed tensor under the name every point class of the
+    port shares (``ExtPoint.coords``), for code generic over the group."""
 
     __slots__ = ("xyz",)
 
     def __init__(self, xyz: torch.Tensor):
         self.xyz = xyz
+
+    @property
+    def coords(self):
+        return self.xyz
 
     @property
     def x(self):
@@ -69,29 +75,14 @@ class ProjPoint:
         return self.xyz.shape[2:]
 
 
-@dataclass(frozen=True)
-class ScalarOrder:
-    """The group order; the SEC2 path reads only its size (the JAX package
-    keeps a Montgomery scalar field there and runs no arithmetic on it)."""
-
-    p: int
-
-    @property
-    def bits(self) -> int:
-        return self.p.bit_length()
-
-    @property
-    def n_bytes(self) -> int:
-        return (self.bits + 7) // 8
-
-
 @dataclass(frozen=True, eq=False)
 class WeierstrassCurveSpec:
-    """y^2 = x^3 + a x + b over ``field`` (JAX weierstrass.py:36-59)."""
+    """y^2 = x^3 + a x + b over ``field`` (JAX weierstrass.py:36-59);
+    ``scalar`` is the field of the group order."""
 
     name: str
     field: Field
-    scalar: ScalarOrder
+    scalar: Field
     a: int
     b_coeff: int
     gx: int
@@ -144,12 +135,13 @@ class WeierstrassCurveSpec:
             return self._add_am3(P, Q)
         return self._add_generic(P, Q)
 
-    def double(self, P: ProjPoint) -> ProjPoint:
-        if self.shape == "a0":
-            return self._dbl_a0(P)
-        if self.shape == "am3":
-            return self._dbl_am3(P)
-        return self._dbl_generic(P)
+    def double(self, P: ProjPoint, k: int = 1) -> ProjPoint:
+        """[2^k]P by k doublings (the signature of ``EdwardsCurve.double``,
+        whose run of k is one kernel launch; here each is plain torch)."""
+        dbl = {"a0": self._dbl_a0, "am3": self._dbl_am3}.get(self.shape, self._dbl_generic)
+        for _ in range(k):
+            P = dbl(P)
+        return P
 
     def _add_common(self, P, Q):
         """The first steps of Algorithms 1, 4 and 7: t0 = X1 X2, t1 = Y1 Y2,

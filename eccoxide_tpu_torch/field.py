@@ -48,14 +48,21 @@ FL format: 16 limbs of 16 bits in the Montgomery domain with R = 2^256.
 FL values are canonical (< l, strict limbs) at every operation boundary.
 A Montgomery product of canonical inputs (or of any value < R with a
 constant < l) is below 2l before its single conditional subtraction; its
-int64 columns stay below 2^38. FL runs no kernel.
+int64 columns stay below 2^38. FL's ``pow_const`` (and so its inverse,
+square root and Euler test) runs on the SEC2 pow kernel's instance for l
+(``field_sec2``'s 28-bit format, 11 limbs); its other operations run no
+kernel.
+
+Both classes take the rest of the JAX ``Field`` API from ``FieldAPI``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .limbs import bytes_to_limbs, int_to_limbs, limbs_to_bytes, offsets
+from .device import resolve_device
+from .limbs import (bytes_to_limbs, int_to_limbs, ints_to_limbs, limbs_to_bytes,
+                    limbs_to_ints, offsets, regroup)
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493
@@ -211,6 +218,11 @@ def _ripple(h: list) -> tuple[list, torch.Tensor]:
     return h, c
 
 
+def _check_wide(by: torch.Tensor, most: int):
+    if by.shape[0] > most:
+        raise ValueError(f"a wide value takes at most {most} bytes, got {by.shape[0]}")
+
+
 def _bview(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(n,) constant -> (n, 1, ..., 1) broadcastable against x."""
     return t.view((t.shape[0],) + (1,) * (x.dim() - 1))
@@ -232,12 +244,88 @@ class _Consts:
         return c
 
 
-class Fe25519:
+class FieldAPI:
+    """The methods of the JAX ``Field`` API (``field.py:1124-1340``) that
+    every field of the port derives from its own ring ops, bytes and
+    ``pow_const``. A field class sets ``p``, ``widths`` (its limb format)
+    and ``mont_r``: its limbs hold v * mont_r mod p (R for FL's Montgomery
+    domain, 1 for the standard domain of every other field)."""
+
+    mont_r = 1
+
+    def encode_ints(self, vals, device="cuda") -> torch.Tensor:
+        """B ints -> (n, B) canonical limbs on device."""
+        vals = [v * self.mont_r % self.p for v in vals]
+        return torch.from_numpy(ints_to_limbs(vals, self.widths)).to(resolve_device(device))
+
+    def decode_ints(self, x) -> list[int]:
+        """(n, *batch) limbs -> the ints they hold, reduced mod p (host)."""
+        rinv = pow(self.mont_r, -1, self.p)
+        return [v * rinv % self.p for v in limbs_to_ints(x, self.widths)]
+
+    def double(self, x):
+        return self.add(x, x)
+
+    def inverse(self, x):
+        """x^(p-2); 0 for 0 (one launch of the field's pow kernel on the
+        card)."""
+        return self.pow_const(x, self.p - 2)
+
+    def is_square(self, x):
+        """Euler's criterion, one pow; 0 counts as a square (JAX
+        field.py:1124)."""
+        ls = self.pow_const(x, (self.p - 1) // 2)
+        return self.eq(ls, self.one(x.shape[1:], x.device)) | self.is_zero(x)
+
+    def sqrt(self, x):
+        """(r, ok): r^2 == x where ok (JAX field.py:1129-1145), one pow:
+        x^((p+1)/4) for p = 3 mod 4, Atkin on (p-5)/8 for p = 5 mod 8; any
+        other prime takes the field's ``_tonelli_shanks``."""
+        p = self.p
+        if p % 4 == 3:
+            r = self.pow_const(x, (p + 1) // 4)
+        elif p % 8 == 5:
+            x2 = self.add(x, x)
+            t = self.pow_const(x2, (p - 5) // 8)
+            i = self.mul(x2, self.square(t))
+            r = self.mul(self.mul(x, t), self.sub(i, self.one(x.shape[1:], x.device)))
+        else:
+            r = self._tonelli_shanks(x)
+        return r, self.eq(self.square(r), x)
+
+    def to_bytes_be(self, x):
+        return self.to_bytes_le(x).flip(0)
+
+    def from_bytes_be(self, by):
+        return self.from_bytes_le(by.flip(0))
+
+    def from_wide_bytes_be(self, by):
+        """Big-endian twin of ``from_wide_bytes_le`` (JAX field.py:1312)."""
+        return self.from_wide_bytes_le(by.flip(0))
+
+    def reduce_wide_bytes_le(self, by):
+        """Wide LE bytes -> the canonical LE bytes of their value mod p."""
+        return self.to_bytes_le(self.from_wide_bytes_le(by))
+
+    def inverse_bingcd(self, x):
+        """x^-1 by the masked binary extended GCD of ``field_sec2`` (JAX
+        field.py:1049-1122), an algorithm independent of the Fermat chain,
+        run on the value carried over in bytes; 0 for 0. Plain torch, as in
+        the JAX package."""
+        from .field_sec2 import field_of
+
+        t = field_of(self.p)
+        y, _ = t.from_bytes_le(self.to_bytes_le(x))
+        return self.from_bytes_le(t.to_bytes_le(t.inverse_bingcd(y)))[0]
+
+
+class Fe25519(FieldAPI):
     """FQ = GF(2^255 - 19) on (10, *batch) int32 TIGHT limbs."""
 
     p = P
     n = 10
     n_bytes = 32
+    widths = WIDTHS
 
     def __init__(self):
         def build(dev):
@@ -352,14 +440,12 @@ class Fe25519:
         return limbs_to_bytes(self.canon(x), WIDTHS, 32)
 
     def from_wide_bytes_le(self, by):
-        """(64, *batch) bytes -> value mod p: 2^255 = 19, 2^510 = 361."""
+        """(up to 64, *batch) bytes -> value mod p: 2^255 = 19, 2^510 = 361."""
+        _check_wide(by, 64)
         w = bytes_to_limbs(by, WIDTHS * 2 + (2,)).to(torch.int64)
         h = w[:10] + 19 * w[10:20]
         h[0] = h[0] + 361 * w[20]
         return _carry(h)
-
-    def reduce_wide_bytes_le(self, by):
-        return self.to_bytes_le(self.from_wide_bytes_le(by))
 
     # -- exponentiation / square roots -------------------------------------
 
@@ -369,10 +455,6 @@ class Fe25519:
         from .ops.group import pow_const_kernel
 
         return pow_const_kernel(x, e)
-
-    def inverse(self, x):
-        """x^(p-2); 0 for 0 (one launch of the pow kernel on the card)."""
-        return self.pow_const(x, P - 2)
 
     def sqrt_ratio(self, u, v):
         """(r, ok) with r^2 == u/v where ok: r = u v^3 (u v^7)^((p-5)/8),
@@ -403,12 +485,14 @@ R3_FL = R_FL * R2_FL % L
 assert 16 * _M16 * _M16 + 16 * _M16 * _M16 + (1 << 22) < (1 << 38)
 
 
-class MontScalarField:
+class MontScalarField(FieldAPI):
     """FL = GF(l), canonical Montgomery limbs (16, *batch) int32."""
 
     p = L
     n = 16
     n_bytes = 32
+    widths = FL_WIDTHS
+    mont_r = R_FL
 
     def __init__(self):
         def build(dev):
@@ -427,6 +511,17 @@ class MontScalarField:
                     "one": col(1)}
 
         self._c = _Consts(build)
+
+    def const(self, v: int, batch, device="cuda") -> torch.Tensor:
+        col = torch.tensor(int_to_limbs(v * R_FL % L, FL_WIDTHS), dtype=torch.int32,
+                           device=resolve_device(device))
+        return col.view((16,) + (1,) * len(batch)).expand((16,) + tuple(batch)).contiguous()
+
+    def zero(self, batch, device="cuda"):
+        return torch.zeros((16,) + tuple(batch), dtype=torch.int32, device=resolve_device(device))
+
+    def one(self, batch, device="cuda"):
+        return self.const(1, batch, device)
 
     def _cond_sub(self, h: list):
         """Strict int64 limb rows of v < 2l -> int32 canonical limbs."""
@@ -467,6 +562,13 @@ class MontScalarField:
 
     def square(self, x):
         return self.mul(x, x)
+
+    def mul_small(self, x, k: int):
+        """x k for a public constant 0 <= k < l: one Montgomery product by
+        k R."""
+        if not 0 <= k < L:
+            raise ValueError(f"mul_small takes 0 <= k < l, got {k}")
+        return self.mul(x, self.const(k, (1,) * (x.dim() - 1), x.device))
 
     def add(self, x, y):
         h = (x.to(torch.int64) + y).unbind(0)
@@ -513,14 +615,33 @@ class MontScalarField:
         return limbs_to_bytes(self.from_mont(x), FL_WIDTHS, 32)
 
     def from_wide_bytes_le(self, by):
-        """(64, *batch) bytes -> Montgomery value of (v0 + v1 2^256) mod l."""
+        """(up to 64, *batch) bytes -> Montgomery value of (v0 + v1 2^256)
+        mod l."""
+        _check_wide(by, 64)
         v = bytes_to_limbs(by, FL_WIDTHS * 2)
         a = self.mul(v[:16], self._const_col("r2", v))     # v0 R
         b = self.mul(v[16:], self._const_col("r3", v))     # v1 R^2
         return self.add(a, b)
 
-    def reduce_wide_bytes_le(self, by):
-        return self.to_bytes_le(self.from_wide_bytes_le(by))
+    # -- exponentiation ----------------------------------------------------
+
+    def pow_const(self, x, e: int):
+        """x^e for a public constant e >= 0. Route: the stored integer
+        y = x R is raised to e in the 28-bit format of ``field_sec2`` (on a
+        CUDA tensor one launch of the SEC2 pow kernel's instance for l),
+        then one Montgomery product by the constant R^(2-e) mod l turns
+        y^e = x^e R^e into x^e R. e = 0 gives one, and x = 0 gives 0 for
+        every e > 0 (so ``inverse`` maps 0 to 0)."""
+        from .field_sec2 import field_of
+
+        if e < 0:
+            raise ValueError("negative exponent")
+        t = field_of(L)
+        y = regroup(x, FL_WIDTHS, t.widths)
+        ye = regroup(t.canon(t.pow_const(y, e)), t.widths, FL_WIDTHS)
+        c = torch.tensor(int_to_limbs(pow(R_FL, 2 - e, L), FL_WIDTHS), dtype=torch.int32,
+                         device=x.device).view((16,) + (1,) * (x.dim() - 1))
+        return self.mul(ye, c)
 
 
 FQ = Fe25519()

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from .field import _Consts
+from .field import FieldAPI, _Consts, _check_wide
 from .limbs import bytes_to_limbs, int_to_limbs, limbs_to_bytes
 
 P = 2**448 - 2**224 - 1
@@ -144,6 +144,9 @@ assert max(a + b for a, b in zip(TIGHT, PAD)) < 2**31
 assert 2 * max(TIGHT) < 2**32                      # the kernel's 2 a_i
 _TIGHT_VALUE = sum(t << (W * i) for i, t in enumerate(TIGHT))
 assert _TIGHT_VALUE < 2**449 and _TIGHT_VALUE - 2**448 + 2**224 + 1 < 2**448
+# from_wide_bytes_le: 32 strict limbs folded into 16, each limb of the fold
+# a sum of at most four of them; the carry returns TIGHT limbs
+assert all(a <= t for a, t in zip(carry_bounds([4 * M] * N), TIGHT))
 
 
 def _carry(h: torch.Tensor) -> torch.Tensor:
@@ -183,12 +186,14 @@ def _ripple(h: list) -> tuple[list, torch.Tensor]:
     return h, c
 
 
-class Fe448:
-    """FQ448 = GF(2^448 - 2^224 - 1) on (16, *batch) int32 TIGHT limbs."""
+class Fe448(FieldAPI):
+    """FQ448 = GF(2^448 - 2^224 - 1) on (16, *batch) int32 TIGHT limbs; the
+    rest of the JAX ``Field`` API from ``field.FieldAPI``."""
 
     p = P
     n = N
     n_bytes = 56
+    widths = WIDTHS
 
     def __init__(self):
         def build(dev):
@@ -268,6 +273,10 @@ class Fe448:
     def eq(self, x, y):
         return (self.canon(x) == self.canon(y)).all(0)
 
+    def sgn0(self, x):
+        """Parity of the canonical value."""
+        return self.canon(x)[0] & 1
+
     # -- bytes -------------------------------------------------------------
 
     def from_bytes_le(self, by):
@@ -284,6 +293,18 @@ class Fe448:
     def to_bytes_le(self, x):
         return limbs_to_bytes(self.canon(x), WIDTHS, self.n_bytes)
 
+    def from_wide_bytes_le(self, by):
+        """(up to 112, *batch) bytes -> their value mod p. Limb 16 + j
+        (2^(448 + 28 j) = 2^(28 j) + 2^(28 (j + 8))) goes into limbs j and
+        j + 8; for j >= 8 limb j + 8 wraps once more, into j - 8 and j."""
+        _check_wide(by, 2 * self.n_bytes)
+        w = bytes_to_limbs(by, WIDTHS * 2).to(torch.int64)
+        h = w[:N] + w[N:]
+        h[HALF:].add_(w[N:N + HALF])
+        h[HALF:].add_(w[N + HALF:])
+        h[:HALF].add_(w[N + HALF:])
+        return _carry(h)
+
     # -- exponentiation ----------------------------------------------------
 
     def pow_const(self, x, e: int):
@@ -292,10 +313,6 @@ class Fe448:
         from .ops.group import pow448_kernel
 
         return pow448_kernel(x, e)
-
-    def inverse(self, x):
-        """x^(p-2); 0 for 0."""
-        return self.pow_const(x, P - 2)
 
 
 FQ448 = Fe448()

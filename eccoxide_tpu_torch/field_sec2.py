@@ -42,6 +42,9 @@ limb, since the others are non-negative):
   every int64 intermediate is asserted there, on Python ints, and so are
   the kernel square's ``2 a_i`` and the folded limbs below 2^32.
   ``LARGEST`` is the largest limb vector within both bounds.
+- ``from_wide_bytes_le`` (up to 2 n_bytes bytes): 2n strict limbs, limb
+  n + j folded by row j into the low n and two carry rounds, as ``mul``
+  does with its columns; the result is asserted TIGHT and within V_TIGHT.
 - ``canon`` estimates the quotient q = V // p from the top 62 bits of the
   value (``V_top // (p_top + 1)``, never above the true quotient),
   subtracts q p limb-wise (q in 28-bit digits, each term below 2^57) and
@@ -50,17 +53,25 @@ limb, since the others are non-negative):
   canonical.
 
 The Montgomery-engine fields of the JAX package (p112r1 and p112r2,
-R = 2^120) hold x R; the port holds x, and ``convert.py`` carries values
-across.
+R = 2^120, and every group order) hold x R; the port holds x, and
+``convert.py`` carries values across.
+
+The same engine serves any odd prime: the SEC2 group orders (the curves'
+``scalar`` fields) and, through ``field_of``, the fields of the port with
+their own formats where they need this one (FL's pow on the card, the
+binary-GCD inverse). The rest of the JAX ``Field`` API comes from
+``field.FieldAPI``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .device import resolve_device
-from .field import _Consts
-from .limbs import bytes_to_limbs, int_to_limbs, ints_to_limbs, limbs_to_bytes, limbs_to_ints
+from .field import FieldAPI, _Consts, _check_wide
+from .limbs import bytes_to_limbs, int_to_limbs, limbs_to_bytes
 
 W = 28
 M = (1 << W) - 1
@@ -133,6 +144,8 @@ class _Format:
         self.LARGEST = t[:-1] + [(self.V_TIGHT - _value(t[:-1])) >> (W * (n - 1))]
         assert M <= self.LARGEST[-1] <= t[-1]
         self.canon_rounds = self._canon_rounds()
+        wb, wv = self.wide_bounds()
+        assert all(a <= b for a, b in zip(wb, t)) and wv <= self.V_TIGHT
 
     # -- the steps of mul and of the linear ops, as bounds ------------------
 
@@ -171,6 +184,18 @@ class _Format:
         assert max(out) < _I63
         v2 = min(_value(low), v) + t * self.fold_vals[0]
         return carry_bounds(out, v2, 1), v2
+
+    def wide_bounds(self):
+        """(limb bounds, value bound) of ``from_wide_bytes_le`` on 2 n_bytes
+        bytes: the strict limbs n.. folded by the rows of ``FOLD`` into the
+        low n, then the carry rounds of ``mul``."""
+        n = self.n
+        vmax = (1 << (16 * ((self.bits + 7) // 8))) - 1
+        lb = [min(M, vmax >> (W * k)) for k in range(2 * n)]
+        out = [lb[i] + sum(lb[n + j] * self.FOLD[j][i] for j in range(n)) for i in range(n)]
+        assert max(out) < _I63
+        v = min(_value(lb[:n]), vmax) + sum(lb[n + j] * self.fold_vals[j] for j in range(n))
+        return carry_bounds(out, v, CARRY_ROUNDS), v
 
     def madds(self, square: bool = False) -> int:
         """The limb multiply-adds one product (or squaring) of TIGHT values
@@ -255,7 +280,7 @@ def _ripple(h: list) -> list:
     return h
 
 
-class Field:
+class Field(FieldAPI):
     """GF(p) for an odd prime p, on (n, *batch) int32 TIGHT limbs."""
 
     def __init__(self, name: str, p: int):
@@ -313,15 +338,6 @@ class Field:
         x = x.reshape((self.n,) + (1,) * len(tuple(batch)))
         return x.expand((self.n,) + tuple(batch)).to(torch.int32).contiguous()
 
-    def encode_ints(self, vals, device="cuda") -> torch.Tensor:
-        """B ints -> (n, B) canonical limbs on device."""
-        return torch.from_numpy(ints_to_limbs([v % self.p for v in vals],
-                                              self.widths)).to(resolve_device(device))
-
-    def decode_ints(self, x) -> list[int]:
-        """(n, *batch) limbs -> the ints they hold, reduced mod p (host)."""
-        return [v % self.p for v in limbs_to_ints(x, self.widths)]
-
     def zero(self, batch, device="cuda"):
         return torch.zeros((self.n,) + tuple(batch), dtype=torch.int32,
                            device=resolve_device(device))
@@ -341,9 +357,6 @@ class Field:
 
     def add(self, x, y):
         return self._reduce_linear(x.to(torch.int64) + y)
-
-    def double(self, x):
-        return self.add(x, x)
 
     def sub(self, x, y):
         return self._reduce_linear(x.to(torch.int64) + self._col("pad", x) - y)
@@ -426,9 +439,6 @@ class Field:
     def to_bytes_le(self, x):
         return limbs_to_bytes(self.canon(x), self.widths, self.n_bytes)
 
-    def to_bytes_be(self, x):
-        return self.to_bytes_le(x).flip(0)
-
     def from_bytes_le(self, by):
         """(n_bytes, *batch) bytes -> (limbs, valid): the strict limbs of
         the value (TIGHT whether or not it is below p); valid is False where
@@ -437,8 +447,17 @@ class Field:
         t = self._sub_p(list(v.to(torch.int64).unbind(0)))
         return v, t[-1] < 0
 
-    def from_bytes_be(self, by):
-        return self.from_bytes_le(by.flip(0))
+    def from_wide_bytes_le(self, by):
+        """(up to 2 n_bytes, *batch) bytes -> their value mod p, TIGHT (JAX
+        field.py:1287-1305): limb n + j of the wide value times row j of
+        the fold matrix into the low n limbs, then the carry rounds of
+        ``mul``."""
+        n = self.n
+        _check_wide(by, 2 * self.n_bytes)
+        w = bytes_to_limbs(by, (W,) * (2 * n)).to(torch.int64)
+        fold = self._c.get(by.device)["fold"].view((n, n) + (1,) * (by.dim() - 1))
+        lo = w[:n] + (w[n:, None] * fold).sum(0)
+        return _carry_rounds(lo, CARRY_ROUNDS).to(torch.int32)
 
     # -- exponentiation / inverse / square roots ---------------------------
 
@@ -448,30 +467,6 @@ class Field:
         from .ops.group import pow_sec2_kernel
 
         return pow_sec2_kernel(self, x, e)
-
-    def inverse(self, x):
-        """x^(p-2); 0 for 0."""
-        return self.pow_const(x, self.p - 2)
-
-    def is_square(self, x):
-        """Euler's criterion; 0 counts as a square (JAX field.py:1124)."""
-        ls = self.pow_const(x, (self.p - 1) // 2)
-        return self.eq(ls, self.one(x.shape[1:], x.device)) | self.is_zero(x)
-
-    def sqrt(self, x):
-        """(r, ok): r^2 == x where ok (JAX field.py:1129-1145): (p+1)/4 for
-        p = 3 mod 4, Atkin for p = 5 mod 8, else constant-time
-        Tonelli-Shanks."""
-        if self.sqrt_kind == "p3mod4":
-            r = self.pow_const(x, (self.p + 1) // 4)
-        elif self.sqrt_kind == "p5mod8":
-            x2 = self.add(x, x)
-            t = self.pow_const(x2, (self.p - 5) // 8)
-            i = self.mul(x2, self.square(t))
-            r = self.mul(self.mul(x, t), self.sub(i, self.one(x.shape[1:], x.device)))
-        else:
-            r = self._tonelli_shanks(x)
-        return r, self.eq(self.square(r), x)
 
     def path_exponents(self) -> dict:
         """The public exponents ``inverse``, ``is_square`` and ``sqrt`` raise
@@ -615,3 +610,15 @@ class Field:
                           sel(c1, hu, sel(c3, huw, u)), sel(c2, hw, sel(c4, hwu, w)))
         is_inv = (g[0] == 1) & (g[1:] == 0).all(0)
         return torch.where(is_inv[None], w, 0).to(torch.int32)
+
+
+@functools.cache
+def field_of(p: int) -> Field:
+    """The ``Field`` of p in this format, built once and named after its
+    instance of the pow kernel (``build.POW_SEC2_INSTANCES``: ``<curve>_n``
+    for a SEC2 group order, ``l25519`` for l), else ``gf(0x...)``: the SEC2
+    curves' scalar fields, FL's pow on the card and the binary-GCD inverse
+    of the fields with other formats."""
+    from .ops.build import POW_SEC2_INSTANCES
+
+    return Field(POW_SEC2_INSTANCES.get(p, f"gf({p:#x})"), p)

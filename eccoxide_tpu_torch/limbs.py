@@ -99,6 +99,23 @@ def limbs_to_bytes(x: torch.Tensor, widths, n_bytes: int) -> torch.Tensor:
     return torch.stack(rows).to(torch.int32)
 
 
+def regroup(x: torch.Tensor, widths_in, widths_out) -> torch.Tensor:
+    """(n_in, *batch) strict limbs of one format -> (n_out, *batch) int32
+    strict limbs of another, the same value (bits beyond ``widths_out``
+    are dropped): each output limb ORs the shifted slices of the input
+    limbs that overlap it."""
+    offs_in = offsets(widths_in)
+    x64 = x.to(torch.int64)
+    rows = []
+    for o, w in zip(offsets(widths_out), widths_out):
+        v = torch.zeros_like(x64[0])
+        for i, (oi, wi) in enumerate(zip(offs_in, widths_in)):
+            if oi + wi > o and oi < o + w:
+                v = v | (x64[i] << (oi - o) if oi >= o else x64[i] >> (o - oi))
+        rows.append(v & ((1 << w) - 1))
+    return torch.stack(rows).to(torch.int32)
+
+
 def windows_from_bytes_le(by: torch.Tensor, n_windows: int) -> torch.Tensor:
     """(n_bytes, B) LE scalar bytes -> (n_windows, B) 4-bit digits, most
     significant first (the operand of a window scalar multiplication)."""

@@ -6,8 +6,9 @@
   ``csrc/pow448.cu`` (the pow kernel over FQ448), ``csrc/imad_probe.cu``
   (the multiply-add rate probe) and, for each limb count of
   ``POW_SEC2_LIMBS``, a source generated here (``pow_sec2_source``) with
-  one instance of ``csrc/pow_sec2.cuh`` per SEC2 coordinate prime of that
-  count, its fold matrix as constants.
+  one instance of ``csrc/pow_sec2.cuh`` per prime of that count in
+  ``POW_SEC2_INSTANCES`` (the SEC2 coordinate primes, the SEC2 group
+  orders and l), its fold matrix as constants.
 - The host batch SHA-512 (``native/sha512.cpp`` at the repository root) is
   compiled by ``g++``.
 
@@ -29,6 +30,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..field import L
 from ..field_sec2 import limb_count
 from ..params.sec2_params import CURVES
 
@@ -41,11 +43,17 @@ KERNEL_SOURCES = {"group": CSRC / "group.cu", "pow448": CSRC / "pow448.cu",
 KERNEL_DEPS = {"group": [CSRC / "fe25519.cuh"],
                "pow448": [CSRC / "fe448.cuh", CSRC / "madw.cuh"],
                "imad_probe": [CSRC / "madw.cuh"]}
-# The SEC2 pow kernel: one instance per distinct coordinate prime (p112r2,
-# p128r2 and p160r2 share the prime of p112r1, p128r1 and p160k1), named
-# after the first curve of params/sec2_params.py with it; one library per
-# limb count, its source generated into GEN_DIR.
-POW_SEC2_INSTANCES = {c["p"]: name for name, c in reversed(CURVES.items())}   # p -> name
+# The SEC2 pow kernel: one instance per prime, one library per limb count,
+# its source generated into GEN_DIR. A coordinate prime (p112r2, p128r2 and
+# p160r2 share the prime of p112r1, p128r1 and p160k1) is named after the
+# first curve of params/sec2_params.py with it, a group order after its
+# curve with the suffix _n (the curves' scalar fields), and l, the order of
+# edwards25519 (FL's pow), l25519: no name stands for two primes.
+_COORDINATE_PRIMES = {c["p"]: name for name, c in reversed(CURVES.items())}
+_ORDERS = {c["order"]: f"{name}_n" for name, c in CURVES.items()}
+POW_SEC2_INSTANCES = {**_COORDINATE_PRIMES, **_ORDERS, L: "l25519"}   # p -> name
+assert len(POW_SEC2_INSTANCES) == len(_COORDINATE_PRIMES) + len(_ORDERS) + 1
+assert len(set(POW_SEC2_INSTANCES.values())) == len(POW_SEC2_INSTANCES)
 POW_SEC2_LIMBS = tuple(sorted({limb_count(p.bit_length()) for p in POW_SEC2_INSTANCES}))
 KERNEL_SOURCES.update({f"pow_sec2_{n}": GEN_DIR / f"pow_sec2_{n}.cu" for n in POW_SEC2_LIMBS})
 KERNEL_DEPS.update({f"pow_sec2_{n}": [CSRC / "pow_sec2.cuh", CSRC / "fe_sec2.cuh",
@@ -142,7 +150,7 @@ def pow_sec2_source(n: int) -> str:
 
     out = ["// Generated by eccoxide_tpu_torch/ops/build.py (pow_sec2_source) from",
            "// field_sec2._Format.FOLD: the pow_sec2 kernel (csrc/pow_sec2.cuh) for",
-           f"// the SEC2 coordinate primes of {n} limbs.",
+           f"// the primes of {n} limbs.",
            '#include "pow_sec2.cuh"', ""]
     for name, p in pow_sec2_primes(n):
         fold = _Format(p).FOLD

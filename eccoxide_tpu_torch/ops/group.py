@@ -16,10 +16,12 @@ The wrappers, each with its plain PyTorch version beside it:
 - ``pow_const_kernel(x, e)``: x^e over FQ for a public constant e;
 - ``pow448_kernel(x, e)``: the same chain over FQ448 (``field448.py``), the
   JAX package's pow kernel instantiated for the field of curve448;
-- ``pow_sec2_kernel(f, x, e)``: the same chain over a SEC2 coordinate
-  field f (``field_sec2.Field``), the JAX package's pow kernel
-  instantiated for the 15 SEC2 primes: one kernel instance per prime, its
-  fold matrix compiled in (``build.pow_sec2_source``).
+- ``pow_sec2_kernel(f, x, e)``: the same chain over a field f of
+  ``field_sec2``'s format, the JAX package's pow kernel instantiated for
+  any ``Field`` it is handed: one kernel instance per prime of
+  ``build.POW_SEC2_INSTANCES`` (the SEC2 coordinate primes, the 15 SEC2
+  group orders and l), its fold matrix compiled in
+  (``build.pow_sec2_source``).
 
 Points are packed int32 tensors ``(4, 10, *batch)`` (X|Y|Z|T, limbs of
 ``field.py``); field batches are ``(10, *batch)``, ``(16, *batch)`` for
@@ -27,7 +29,12 @@ FQ448, ``(f.n, *batch)`` for a SEC2 field. A wrapper given CPU tensors
 runs the plain version; given CUDA tensors it launches its kernel
 (``csrc/group.cu``, ``csrc/pow448.cu``, ``csrc/pow_sec2.cuh``) or raises. Each wrapper counts its launches in a plain
 integer attribute ``launches``, and ``ed_add`` splits its count by mode in
-``ed_add.launches_by_mode``; nothing else touches the counts.
+``ed_add.launches_by_mode``; nothing else touches the counts. Beside the
+count, each launch adds its shape to the wrapper's set ``shapes``: the
+arguments that select the kernel's work, with the width in lanes
+(``ed_add``: (mode, W); ``ed_double``: (k, need_t, W); a pow: (field, e,
+W)), so that a caller can hold the kernel against its plain version at
+every shape a path gave it.
 
 The JAX package's adapter ``PallasGroup`` has no class here: the curve
 ``curves.curve25519.EDWARDS`` sends every add and double through these
@@ -191,8 +198,10 @@ def _add_launch(p, q, mixed: bool, need_t: bool) -> torch.Tensor:
         p.data_ptr(), q.data_ptr(), out.data_ptr(), int(mixed), int(need_t), w,
         _stream(p.device))
     _raise_on(rc, "ed_add")
+    mode = "mixed" if mixed else "full" if need_t else "need_t=False"
     ed_add.launches += 1
-    ed_add.launches_by_mode["mixed" if mixed else "full" if need_t else "need_t=False"] += 1
+    ed_add.launches_by_mode[mode] += 1
+    ed_add.shapes.add((mode, w))
     return out
 
 
@@ -241,6 +250,7 @@ def ed_double(p: torch.Tensor, need_t: bool = True, k: int = 1) -> torch.Tensor:
         p.data_ptr(), out.data_ptr(), k, int(need_t), w, _stream(p.device))
     _raise_on(rc, "ed_double")
     ed_double.launches += 1
+    ed_double.shapes.add((k, bool(need_t), w))
     return out
 
 
@@ -282,6 +292,7 @@ def _pow(f, x: torch.Tensor, e: int, lib: str, entry: str, wrapper) -> torch.Ten
                 _stream(x.device))
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.shapes.add((f, e, w))
     return out
 
 
@@ -302,11 +313,12 @@ pow448_kernel.launches = 0
 
 
 def pow_sec2_kernel(f, x: torch.Tensor, e: int) -> torch.Tensor:
-    """x^e over the SEC2 field f (``field_sec2.Field``) for an int32
-    (f.n, *batch) batch and a public e >= 0; on the card the kernel
-    instance of f's prime."""
+    """x^e over the field f (``field_sec2.Field``) for an int32 (f.n,
+    *batch) batch and a public e >= 0: on a CPU tensor the plain chain, for
+    any odd prime; on a CUDA tensor the kernel instance of f's prime, and a
+    prime with no instance raises."""
     name = build.POW_SEC2_INSTANCES.get(f.p)
-    if name is None:
+    if name is None and _on_cuda(x):
         raise ValueError(f"no pow_sec2 kernel for p = {f.p:#x}")
     return _pow(f, x, e, f"pow_sec2_{f.n}", f"pow_sec2_launch_{name}", pow_sec2_kernel)
 
@@ -316,12 +328,23 @@ pow_sec2_kernel.launches = 0
 WRAPPERS = (pow_const_kernel, ed_add, ed_double, pow448_kernel, pow_sec2_kernel)
 
 
+for _w in WRAPPERS:
+    _w.shapes = set()
+
+
 def reset_launches():
+    """Every count to 0 and every set of shapes emptied."""
     for w in WRAPPERS:
         w.launches = 0
+        w.shapes = set()
     ed_add.launches_by_mode = dict.fromkeys(ed_add.launches_by_mode, 0)
 
 
 def launches() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def launch_shapes() -> dict:
+    """Wrapper name -> the shapes of its launches since the last reset."""
+    return {w.__name__: set(w.shapes) for w in WRAPPERS}
 

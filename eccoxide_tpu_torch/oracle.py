@@ -1,6 +1,6 @@
-"""Textbook Ed25519 (RFC 8032 PureEdDSA), X25519/X448 (RFC 7748) and
-short-Weierstrass arithmetic with SEC1 point compression, on Python ints
-and hashlib.
+"""Textbook Ed25519 (RFC 8032 PureEdDSA), X25519/X448 (RFC 7748),
+ristretto255 (RFC 9496) and short-Weierstrass arithmetic with SEC1 point
+compression, on Python ints and hashlib.
 
 An independent signer, verifier, Diffie-Hellman and curve for making and
 checking test vectors; it shares no code with the batched engines."""
@@ -259,3 +259,147 @@ def sec2_curve(name: str) -> WCurve:
 
     c = CURVES[name]
     return WCurve(c["p"], c["a"] % c["p"], c["b"] % c["p"], c["gx"], c["gy"], c["order"])
+
+
+# ---------------------------------------------------------------------------
+# ristretto255, straight from the RFC 9496 pseudocode (the JAX package's
+# oracle/ristretto.py); points are extended (X, Y, Z, T) tuples of ints
+# ---------------------------------------------------------------------------
+
+SQRT_M1 = pow(2, (P - 1) // 4, P)
+ONE_MINUS_D_SQ = (1 - D * D) % P
+D_MINUS_ONE_SQ = ((D - 1) ** 2) % P
+
+
+def _is_neg(x):
+    return x % 2 == 1
+
+
+def _abs(x):
+    return P - x if _is_neg(x) else x
+
+
+def _even_sqrt(x):
+    x %= P
+    r = pow(x, (P + 3) // 8, P)
+    if (r * r - x) % P:
+        r = r * SQRT_M1 % P
+    assert (r * r - x) % P == 0
+    return _abs(r)
+
+
+# RFC 9496 fixes SQRT_AD_MINUS_ONE to the ODD root of a d - 1: the even root
+# maps the A.3 one-way-map inputs to other points, and an implementation
+# sharing the even root with this oracle would agree with it and not with
+# the RFC
+SQRT_AD_MINUS_ONE = P - _even_sqrt(-1 - D)
+INVSQRT_A_MINUS_D = _even_sqrt(pow((-1 - D) % P, -1, P))
+RISTRETTO_BASE = (G[0], G[1], 1, G[0] * G[1] % P)
+RISTRETTO_IDENTITY = (0, 1, 1, 0)
+
+
+def ristretto_sqrt_ratio_m1(u, v):
+    v3 = v * v % P * v % P
+    v7 = v3 * v3 % P * v % P
+    r = u * v3 % P * pow(u * v7 % P, (P - 5) // 8, P) % P
+    check = v * r % P * r % P
+    correct = check == u % P
+    flipped = check == (-u) % P
+    flipped_i = check == (-u * SQRT_M1) % P
+    if flipped or flipped_i:
+        r = r * SQRT_M1 % P
+    return (correct or flipped), _abs(r)
+
+
+def _ext_add(p1, p2):
+    x1, y1, z1, t1 = p1
+    x2, y2, z2, t2 = p2
+    A = (y1 - x1) * (y2 - x2) % P
+    B = (y1 + x1) * (y2 + x2) % P
+    C = t1 * (2 * D) % P * t2 % P
+    Dv = 2 * z1 * z2 % P
+    E, F, Gv, H = (B - A) % P, (Dv - C) % P, (Dv + C) % P, (B + A) % P
+    return (E * F % P, Gv * H % P, F * Gv % P, E * H % P)
+
+
+def ristretto_mul(k, pt=RISTRETTO_BASE):
+    acc = RISTRETTO_IDENTITY
+    while k:
+        if k & 1:
+            acc = _ext_add(acc, pt)
+        pt = _ext_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def ristretto_compress(pt) -> bytes:
+    x0, y0, z0, t0 = pt
+    u1 = (z0 + y0) * (z0 - y0) % P
+    u2 = x0 * y0 % P
+    _, invsqrt = ristretto_sqrt_ratio_m1(1, u1 * u2 % P * u2 % P)
+    den1 = invsqrt * u1 % P
+    den2 = invsqrt * u2 % P
+    z_inv = den1 * den2 % P * t0 % P
+    if _is_neg(t0 * z_inv % P):
+        x, y = y0 * SQRT_M1 % P, x0 * SQRT_M1 % P
+        den_inv = den1 * INVSQRT_A_MINUS_D % P
+    else:
+        x, y = x0, y0
+        den_inv = den2
+    if _is_neg(x * z_inv % P):
+        y = (-y) % P
+    s = _abs(den_inv * (z0 - y) % P)
+    return s.to_bytes(32, "little")
+
+
+def ristretto_decompress(by: bytes):
+    """The point of an encoding, or None where RFC 9496 rejects it."""
+    s = int.from_bytes(by, "little")
+    if s >= P or _is_neg(s):
+        return None
+    ss = s * s % P
+    u1 = (1 - ss) % P
+    u2 = (1 + ss) % P
+    u2_sqr = u2 * u2 % P
+    v = (-(D * u1 % P * u1) - u2_sqr) % P
+    ok, invsqrt = ristretto_sqrt_ratio_m1(1, v * u2_sqr % P)
+    if not ok:
+        return None
+    den_x = invsqrt * u2 % P
+    den_y = invsqrt * den_x % P * v % P
+    x = _abs(2 * s * den_x % P)
+    y = u1 * den_y % P
+    t = x * y % P
+    if _is_neg(t) or y == 0:
+        return None
+    return (x, y, 1, t)
+
+
+def ristretto_eq(p, q):
+    x1, y1, _, _ = p
+    x2, y2, _, _ = q
+    return (x1 * y2 - y1 * x2) % P == 0 or (y1 * y2 - x1 * x2) % P == 0
+
+
+def ristretto_elligator(r0):
+    r = SQRT_M1 * r0 % P * r0 % P
+    n_s = (r + 1) * ONE_MINUS_D_SQ % P
+    c = (-1) % P
+    d_ = (c - D * r) % P * (r + D) % P
+    ok, s = ristretto_sqrt_ratio_m1(n_s, d_)
+    s_prime = (-_abs(s * r0 % P)) % P
+    if not ok:
+        s = s_prime
+        c = r
+    n_t = (c * (r - 1) % P * D_MINUS_ONE_SQ - d_) % P
+    w0 = 2 * s * d_ % P
+    w1 = n_t * SQRT_AD_MINUS_ONE % P
+    w2 = (1 - s * s) % P
+    w3 = (1 + s * s) % P
+    return (w0 * w3 % P, w2 * w1 % P, w1 * w3 % P, w0 * w2 % P)
+
+
+def ristretto_from_uniform_bytes(by: bytes):
+    r0 = int.from_bytes(by[:32], "little") & ((1 << 255) - 1)
+    r1 = int.from_bytes(by[32:], "little") & ((1 << 255) - 1)
+    return _ext_add(ristretto_elligator(r0), ristretto_elligator(r1))

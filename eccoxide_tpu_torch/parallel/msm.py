@@ -1,8 +1,15 @@
-"""Pippenger multi-scalar multiplication for the batch verifier.
+"""Pippenger multi-scalar multiplication over any group of the port.
 
-Counterpart of ``msm_multi_prefix`` and its helpers in
-the JAX package's ``parallel/msm.py``. Inputs are public (signature data), so
-the digits may drive sorts and gathers. Completeness of the addition law
+Counterpart of ``msm_local``, ``msm_local_window_sums``,
+``msm_multi_prefix`` and their helpers in the JAX package's
+``parallel/msm.py``. A group is a curve object (``curves.curve25519.EDWARDS``,
+a SEC2 ``WeierstrassCurveSpec``) with ``identity``, ``add``, ``neg`` and
+``double(p, k=...)``; its points (``ExtPoint``, ``ProjPoint``) keep their
+packed coordinates, (coordinates, limbs, *batch), in ``coords``, and
+``type(p)(tensor)`` makes a point of the same class. On edwards25519 a
+run of k doublings is one kernel launch; on a SEC2 curve it is k plain
+doublings. Inputs are public (signature data, public points), so the
+digits may drive sorts and gathers. Completeness of the addition laws
 makes any order of additions and identity padding safe.
 """
 
@@ -10,8 +17,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from ..curves.edwards import ExtPoint
 
 
 def _window_digits(scalar_bytes, c: int, n_windows: int):
@@ -38,34 +43,120 @@ def _rev_bits(x, nb: int):
     return v
 
 
-def _horner_fold(group, ws: ExtPoint, n_windows: int, c: int) -> ExtPoint:
-    """acc = [2^c] acc + S_w from the top window down (one doubling launch
+def _horner_fold(group, ws, n_windows: int, c: int):
+    """acc = [2^c] acc + S_w from the top window down (one doubling run
     per window); ws has batch (n_windows,), the result batch (1,)."""
-    acc = group.identity((1,), ws.xyzt.device)
+    acc = group.identity((1,), ws.coords.device)
     for w in range(n_windows - 1, -1, -1):
         acc = group.double(acc, k=c)
-        acc = group.add(acc, ExtPoint(ws.xyzt[..., w:w + 1]))
+        acc = group.add(acc, type(ws)(ws.coords[..., w:w + 1]))
     return acc
 
 
-def _tree_reduce_points_ops(group, pts: ExtPoint, axis_size: int) -> ExtPoint:
+def _tree_reduce_points_ops(group, pts, axis_size: int):
     """Sum the last batch axis (padded with identity to a power of two) by
     halving: log2 additions, each over the full remaining width."""
     size = 1
     while size < axis_size:
         size *= 2
-    x = pts.xyzt
+    x, wrap = pts.coords, type(pts)
     if size != axis_size:
-        ident = group.identity((size - axis_size,), x.device).xyzt
+        ident = group.identity((size - axis_size,), x.device).coords
         x = torch.cat([x, ident], dim=-1)
     while size > 1:
         half = size // 2
-        x = group.add(ExtPoint(x[..., :half]), ExtPoint(x[..., half:])).xyzt
+        x = group.add(wrap(x[..., :half]), wrap(x[..., half:])).coords
         size = half
-    return ExtPoint(x)
+    return wrap(x)
 
 
-def msm_multi_prefix(group, terms, c: int = 12) -> ExtPoint:
+def _sorted_windows(group, pts, digits):
+    """Step 1 of the bucket machinery for (nw, B) digits of the points
+    ``pts`` (batch (B,)): per window, the digits sorted and the points
+    sorted by digit, laid out in bit-reversed order of the sorted position
+    with the identity in the padding up to B2 = 2^k >= B. Returns (sorted
+    digits (nw, B), coords (k, n, nw, B2))."""
+    B = digits.shape[-1]
+    dev = digits.device
+    B2 = 1 << max(0, (B - 1).bit_length())
+    brev = _rev_bits(np.arange(B2), B2.bit_length() - 1)
+    ds, order = torch.sort(digits, dim=-1, stable=True)
+    g = pts.coords[:, :, order[:, torch.as_tensor(np.minimum(brev, B - 1), device=dev)]]
+    if B2 != B:
+        ident1 = group.identity((1,), dev).coords
+        g = torch.where(torch.as_tensor(brev >= B, device=dev), ident1[..., None], g)
+    return ds, g
+
+
+def _bucket_sums(group, wrap, ds, x, c: int):
+    """Steps 2-5 over NW stacked windows: sorted digits ds (NW, B), their
+    points x (k, n, NW, B2) from ``_sorted_windows``; returns sum_j j B_j of
+    every window, coords (k, n, NW, 1). ``wrap`` makes a point of the
+    group's class from coords."""
+    m = 1 << c
+    NW, B2 = ds.shape[0], x.shape[-1]
+    nlev = B2.bit_length() - 1
+    dev = x.device
+    ident1 = group.identity((1,), dev).coords               # (k, n, 1)
+
+    levels = [x]
+    width = B2
+    for _ in range(nlev):
+        half = width // 2
+        x = group.add(wrap(x[..., :half]), wrap(x[..., half:])).coords
+        levels.append(x)
+        width = half
+    total = levels[-1]                                      # (k, n, NW, 1)
+
+    D = ident1[..., None].expand(*ident1.shape[:2], NW, 1).contiguous()
+    for lev in range(nlev - 1, -1, -1):
+        half = B2 >> (lev + 1)
+        left = levels[lev][..., :half]
+        levels[lev] = None
+        grown = group.add(wrap(D), wrap(left)).coords
+        D = torch.cat([D, grown], dim=-1)
+    del levels
+
+    j = torch.arange(m - 1, device=dev).expand(NW, m - 1).contiguous()
+    t = torch.searchsorted(ds, j, right=True)               # (NW, m-1) in [0, B]
+    pos = _rev_bits(t.clamp(max=B2 - 1), nlev)
+    S = D.gather(-1, pos[None, None].expand(*D.shape[:2], NW, m - 1))
+    S = torch.where((t == B2)[None, None], total, S)
+    del D
+
+    acc = group.double(wrap(total), k=c)
+    acc = group.add(acc, group.neg(wrap(total)))
+    ssum = S
+    size = m - 1
+    while size > 1:
+        half = size // 2
+        merged = group.add(wrap(ssum[..., :half]), wrap(ssum[..., half:2 * half])).coords
+        ssum = torch.cat([merged, ssum[..., 2 * half:]], dim=-1)
+        size = half + (size - 2 * half)
+    return group.add(acc, group.neg(wrap(ssum))).coords
+
+
+def msm_local_window_sums(group, pts, digits, c: int):
+    """Per-window weighted bucket sums sum_j j B_j as a point batch of
+    width nw (JAX parallel/msm.py:167-207) for (nw, B) c-bit digits of the
+    points ``pts`` (batch (B,)), on the bucket machinery of
+    ``msm_multi_prefix``. Returns the same group elements as the JAX
+    function (not the same projective coordinates)."""
+    ds, x = _sorted_windows(group, pts, digits)
+    return type(pts)(_bucket_sums(group, type(pts), ds.contiguous(), x, c)[..., 0])
+
+
+def msm_local(group, pts, scalar_bytes, c: int = 8):
+    """sum_i [s_i] P_i (batch (1,)) for points ``pts`` of batch (B,) and
+    (nbytes, B) LE scalar bytes (JAX parallel/msm.py:114-123): the c-bit
+    windows' bucket sums, then one Horner fold."""
+    n_windows = -(-scalar_bytes.shape[0] * 8 // c)
+    digits = _window_digits(scalar_bytes, c, n_windows)
+    ws = msm_local_window_sums(group, pts, digits, c)
+    return _horner_fold(group, ws, n_windows, c)
+
+
+def msm_multi_prefix(group, terms, c: int = 12):
     """sum_t sum_i [s_ti] P_ti for ``terms`` = [(points (B,), scalar bytes
     (nbytes_t, B)), ...] sharing B; byte lengths may differ.
 
@@ -88,70 +179,22 @@ def msm_multi_prefix(group, terms, c: int = 12) -> ExtPoint:
 
     Equal-index windows of the terms carry the same weight 2^(c w) and are
     added before one Horner fold. Every addition and doubling is
-    ``group``'s, so on CUDA tensors each one is a kernel launch.
+    ``group``'s, so on CUDA tensors each one on edwards25519 is a kernel
+    launch.
     """
-    m = 1 << c
-    B = terms[0][0].xyzt.shape[-1]
-    dev = terms[0][0].xyzt.device
-    B2 = 1 << max(0, (B - 1).bit_length())
-    nlev = B2.bit_length() - 1
-    brev = _rev_bits(np.arange(B2), nlev)
-    pad_tail = torch.as_tensor(brev >= B, device=dev)
-    brev_src = torch.as_tensor(np.minimum(brev, B - 1), device=dev)
-    ident1 = group.identity((1,), dev).xyzt                 # (4, 10, 1)
-
+    wrap = type(terms[0][0])
+    dev = terms[0][0].coords.device
     ds_all, pts_all, nw_list = [], [], []
     for pts, scalar_bytes in terms:
         nw = -(-scalar_bytes.shape[0] * 8 // c)
         nw_list.append(nw)
-        digits = _window_digits(scalar_bytes, c, nw)        # (nw, B)
-        ds, order = torch.sort(digits, dim=-1, stable=True)
-        g = pts.xyzt[:, :, order[:, brev_src]]              # (4, 10, nw, B2)
-        if B2 != B:
-            g = torch.where(pad_tail, ident1[..., None], g)
+        ds, g = _sorted_windows(group, pts, _window_digits(scalar_bytes, c, nw))
         ds_all.append(ds)
         pts_all.append(g)
     ds = torch.cat(ds_all).contiguous()                     # (NW, B)
-    x = torch.cat(pts_all, dim=2)                           # (4, 10, NW, B2)
-    NW = ds.shape[0]
+    x = torch.cat(pts_all, dim=2)                           # (k, n, NW, B2)
     del pts_all
-
-    levels = [x]
-    width = B2
-    for _ in range(nlev):
-        half = width // 2
-        x = group.add(ExtPoint(x[..., :half]), ExtPoint(x[..., half:])).xyzt
-        levels.append(x)
-        width = half
-    total = levels[-1]                                      # (4, 10, NW, 1)
-
-    D = ident1[..., None].expand(4, 10, NW, 1).contiguous()
-    for lev in range(nlev - 1, -1, -1):
-        half = B2 >> (lev + 1)
-        left = levels[lev][..., :half]
-        levels[lev] = None
-        grown = group.add(ExtPoint(D), ExtPoint(left)).xyzt
-        D = torch.cat([D, grown], dim=-1)
-    del levels
-
-    j = torch.arange(m - 1, device=dev).expand(NW, m - 1).contiguous()
-    t = torch.searchsorted(ds, j, right=True)               # (NW, m-1) in [0, B]
-    pos = _rev_bits(t.clamp(max=B2 - 1), nlev)
-    S = D.gather(-1, pos[None, None].expand(4, 10, NW, m - 1))
-    S = torch.where((t == B2)[None, None], total, S)
-    del D
-
-    acc = group.double(ExtPoint(total), k=c)
-    acc = group.add(acc, group.neg(ExtPoint(total)))
-    ssum = S
-    size = m - 1
-    while size > 1:
-        half = size // 2
-        merged = group.add(ExtPoint(ssum[..., :half]),
-                         ExtPoint(ssum[..., half:2 * half])).xyzt
-        ssum = torch.cat([merged, ssum[..., 2 * half:]], dim=-1)
-        size = half + (size - 2 * half)
-    ws = group.add(acc, group.neg(ExtPoint(ssum))).xyzt         # (4, 10, NW, 1)
+    ws = _bucket_sums(group, wrap, ds, x, c)                # (k, n, NW, 1)
 
     max_nw = max(nw_list)
     per_w = None
@@ -159,7 +202,7 @@ def msm_multi_prefix(group, terms, c: int = 12) -> ExtPoint:
     for nw in nw_list:
         cur = ws[:, :, off:off + nw, 0]
         if nw < max_nw:
-            cur = torch.cat([cur, group.identity((max_nw - nw,), dev).xyzt], -1)
-        per_w = ExtPoint(cur) if per_w is None else group.add(per_w, ExtPoint(cur))
+            cur = torch.cat([cur, group.identity((max_nw - nw,), dev).coords], -1)
+        per_w = wrap(cur) if per_w is None else group.add(per_w, wrap(cur))
         off += nw
     return _horner_fold(group, per_w, max_nw, c)

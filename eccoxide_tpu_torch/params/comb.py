@@ -76,13 +76,20 @@ def comb_tables():
     return _frozen(xs, ys, ts)
 
 
+@functools.cache
+def edwards_comb(device: torch.device) -> torch.Tensor:
+    """``comb_tables()`` as (64, 16, 3, 10) int32 (window, entry, x|y|t,
+    limbs) on device, the layout ``mul_base`` selects from; moved once per
+    device."""
+    return torch.from_numpy(np.ascontiguousarray(np.stack(comb_tables(), axis=2))).to(device)
+
+
 def mul_base(scalar_bytes: torch.Tensor, comb: torch.Tensor) -> ExtPoint:
     """[s]B for (32, B) LE scalar bytes s, in constant time: 64 windows of
     4 bits, window i (bits 4i..4i+3) adding [digit 16^i]B with one mixed
     addition (one launch of the add kernel on the card), no doublings.
 
-    ``comb`` is ``comb_tables()`` as (64, 16, 3, 10) int32 x|y|t rows on
-    the scalar's device. The digit is secret: each window's entry is the
+    ``comb`` is ``edwards_comb`` of the scalar's device. The digit is secret: each window's entry is the
     masked sum of all 16 entries (``limbs.ct_lookup``). Entry 0 is the affine identity (0, 1, 0), which the complete
     mixed addition absorbs."""
     B = scalar_bytes.shape[1]

@@ -21,7 +21,7 @@ from ..curves.edwards import ExtPoint
 from ..device import resolve_device
 from ..limbs import windows_from_bytes_le
 from ..ops.sha512 import sha512_batch
-from ..params.comb import comb_tables, edwards_byte_table, mul_base
+from ..params.comb import comb_tables, edwards_byte_table, edwards_comb, mul_base
 
 
 class VerifyTables:
@@ -47,8 +47,7 @@ class SignTables:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        comb = np.ascontiguousarray(np.stack(comb_tables(), axis=2))
-        self.comb = torch.from_numpy(comb).to(self.device)
+        self.comb = edwards_comb(self.device)
 
 
 def clamp_scalar_bytes(h: np.ndarray) -> np.ndarray:

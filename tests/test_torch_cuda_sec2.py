@@ -1,5 +1,6 @@
-"""The SEC2 pow kernel on the card: every prime's instance against its
-plain version limb for limb, on the exponents the SEC2 path uses, and the
+"""The SEC2 pow kernel on the card: every prime's instance (coordinate
+primes, group orders, l) against its plain version limb for limb, on the
+exponents the SEC2 path uses, and the
 SEC2 path on the card against the CPU. Marked ``cuda``; every test skips
 inside its body when no CUDA device is present. Run on a machine with the
 card:
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 from eccoxide_tpu_torch.curves import sec2
+from eccoxide_tpu_torch.field import L
+from eccoxide_tpu_torch.field_sec2 import field_of
 from eccoxide_tpu_torch.limbs import windows_from_bytes_le
 from eccoxide_tpu_torch.ops import group
 
@@ -24,13 +27,17 @@ def _card():
 
 
 def test_pow_sec2_equals_plain_for_every_field():
-    """Widths 0, 1 and 129 (a tail of one lane in the second block)."""
+    """Widths 0, 1 and 129 (a tail of one lane in the second block), for
+    every instance: the 15 coordinate fields, the 15 group orders (the
+    curves' scalar fields) and l; a prime with no instance raises."""
     dev = _card()
     seen = set()
+    fields = ([sec2.get_curve(name).field for name in sec2.ALL]
+              + [sec2.get_curve(name).scalar for name in sec2.ALL] + [field_of(L)])
     for W in (0, 1, 129):
         gen = torch.Generator().manual_seed(W)
-        for name in sec2.ALL:
-            f = sec2.get_curve(name).field
+        for f in fields:
+            name = f.name
             seen.add(group.build.POW_SEC2_INSTANCES[f.p])
             top = torch.tensor(f.fmt.LARGEST, dtype=torch.int64)
             x = (torch.randint(0, 1 << 62, (f.n, W), generator=gen) % (top[:, None] + 1)).to(torch.int32)
@@ -44,6 +51,9 @@ def test_pow_sec2_equals_plain_for_every_field():
             launched = group.launches()["pow_sec2_kernel"]
             assert launched == (len(f.path_exponents()) + 1 if W else 0), (name, W)
     assert seen == set(group.build.POW_SEC2_INSTANCES.values())
+    m127 = field_of(2**127 - 1)
+    with pytest.raises(ValueError, match="no pow_sec2 kernel"):
+        group.pow_sec2_kernel(m127, m127.encode_ints([3], "cpu").to(dev), 5)
 
 
 def test_sec2_path_on_the_card_matches_the_cpu():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from eccoxide_tpu_torch.curves import sec2
-from eccoxide_tpu_torch.field_sec2 import MUL_SMALL_MAX, M, W
+from eccoxide_tpu_torch.field_sec2 import MUL_SMALL_MAX, M, W, _Format
 from eccoxide_tpu_torch.limbs import limbs_to_ints
 from eccoxide_tpu_torch.ops import build, group
 
@@ -120,6 +120,8 @@ def test_pow_inverse_and_square_roots_against_ints():
     kinds = set()
     folds = _kernel_folds()
     assert set(folds) == set(build.POW_SEC2_INSTANCES.values())
+    for p, name in build.POW_SEC2_INSTANCES.items():     # primes, group orders and l
+        assert folds[name] == _Format(p).FOLD, name
     for curve in sec2.ALL:
         f = _field(curve)
         p = f.p
