@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: Ed25519 verification,
 key generation and signing, X25519 and X448, the 15 SEC2 curves,
-ristretto255, the field API and the MSM.
+ristretto255, the field API, the MSM and the sharded layer.
 
     python3 chip_smoke.py
 
@@ -26,8 +26,14 @@ orders at B=32768 (inverse, square roots, Euler's test, wide reduction;
 64 lanes against Python ints; the pow kernel's instances of l and of the
 orders against their plain version), and ``msm_local`` with c=8 at
 B=32768 on edwards25519 and P-256 (points [a_i]G from the comb, the sum
-against the oracle's [sum s_i a_i]G). It counts the kernel launches of each path, with the counts
-set to 0 just before it, records the shape of each launch (width in lanes,
+against the oracle's [sum s_i a_i]G); and the sharded layer in an NCCL
+world of one on the card (phase ``sharded``: ``make_sharded_verify`` at
+B=32768 with one tampered lane against ``verify_core``, ``make_sharded_msm``
+on the edwards25519 MSM inputs against ``msm_local``, ``msm_sharded_example``
+and ``entry.dryrun_multichip`` in a spawned process; worlds of 2 and 4 need
+a card a rank, and are checked on gloo CPU ranks by the tests). It
+counts the kernel launches of each path, with the counts set to 0 just
+before it, records the shape of each launch (width in lanes,
 mode, run length, field and exponent) and holds the kernel against its
 plain version at every such shape the checks before the paths did not
 cover, and times kernels, plain versions and paths. It
@@ -752,7 +758,7 @@ def main() -> int:
     def counted(path, fn, want, add_mode="mixed"):
         """fn() with the launch counts set to 0 just before and read just
         after; they must equal `want` (kernel -> launches, the others 0),
-        every add in `add_mode`."""
+        every add in `add_mode` (or as many of each mode as a dict says)."""
         group.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -764,8 +770,9 @@ def main() -> int:
         full = {k: want.get(k, 0) for k in got}
         if got != full:
             raise RuntimeError(f"{path} launched {got}, not {full}")
-        if want.get("ed_add") and group.ed_add.launches_by_mode[add_mode] != want["ed_add"]:
-            raise RuntimeError(f"{path}: adds {group.ed_add.launches_by_mode}, not all {add_mode}")
+        modes = add_mode if isinstance(add_mode, dict) else {add_mode: want.get("ed_add", 0)}
+        if want.get("ed_add") and {m: group.ed_add.launches_by_mode[m] for m in modes} != modes:
+            raise RuntimeError(f"{path}: adds {group.ed_add.launches_by_mode}, not {modes}")
         path_counts[path] = got
         return out, secs
 
@@ -1142,7 +1149,7 @@ def main() -> int:
             size, tree = size // 2 + size % 2, tree + 1
         return {"ed_add": 2 * nlev + 1 + tree + 1 + nw, "ed_double": 1 + nw}
 
-    msm_rates, msm_cores, msm_out = {}, {}, {}
+    msm_rates, msm_cores, msm_out, msm_inputs = {}, {}, {}, {}
     for cname in ("edwards25519", "p256r1"):
         if cname == "edwards25519":
             grp, order, nb = pe.ED, L, 32
@@ -1169,6 +1176,7 @@ def main() -> int:
             exp = o.compress(o.mul_base(k))
         if got != exp:
             raise RuntimeError(f"msm_local on {cname} differs from the oracle")
+        msm_inputs[cname] = (grp, pts, s_cols, got)
         msm_cores[f"msm_local_{cname}"] = (lambda g_=grp, p2=pts, sc=s_cols:
                                            msm_local(g_, p2, sc, c=MSM_C))
         runs = host_rate(msm_cores[f"msm_local_{cname}"])
@@ -1177,6 +1185,110 @@ def main() -> int:
     emit({"phase": "msm_local", "B": B, "c": MSM_C,
           "check": "compress(sum_i [s_i][a_i]G) == oracle compress([sum_i s_i a_i mod n]G)",
           "curves": msm_out, **msm_rates})
+
+    # -- phase 13: the sharded layer in an NCCL world of one --------------------
+    # The card's machine has one H100, and NCCL takes one card a rank
+    # ("Duplicate GPU detected" for two ranks on one), so the world is one
+    # rank in this process; worlds of 2 and 4 run on gloo in the CPU tests.
+    # The sharded verify runs Straus's launches on the whole batch, the
+    # sharded MSM msm_local's and one add of width nw (the D = 1 gathered
+    # window sums added to the identity, as JAX adds them), the example MSM
+    # one pow (its to_affine).
+    import tempfile
+
+    import torch.distributed as dist
+    from eccoxide_tpu_torch import entry
+    from eccoxide_tpu_torch.parallel import world
+    from eccoxide_tpu_torch.parallel.batch_verify import make_sharded_verify, shard_batch
+    from eccoxide_tpu_torch.parallel.msm import make_sharded_msm, msm_sharded_example
+
+    rendezvous = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    wdev = world.init_world(0, 1, "cuda", "file://" + os.path.join(rendezvous.name, "rendezvous"))
+    nccl_init_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    # the Straus phase's batch, lane 3's S flipped
+    sh_sigs = list(sigs)
+    sh_sigs[3] = flip_s(sigs[3])
+    sh_inputs = pe.host_inputs(pks, msgs, sh_sigs, wdev)
+    sh_cols = [shard_batch(a) for a in sh_inputs]
+    sharded_verify = make_sharded_verify(wdev)
+    (sh_ok, sh_count), _ = counted(
+        "sharded_verify", lambda: sharded_verify(*sh_cols),
+        {"ed_add": sum(STRAUS_ADDS.values()), "ed_double": 64, "pow_const_kernel": 2},
+        add_mode=STRAUS_ADDS)
+    if int(sh_count) != B - 1 or bool(sh_ok[3]) or not torch.equal(
+            sh_ok, pe.verify_core(*sh_inputs, tables)):
+        raise RuntimeError(f"sharded verify: count {int(sh_count)} of {B}, or its mask "
+                           "differs from verify_core")
+    grp_e, pts_e, s_cols_e, local_e = msm_inputs["edwards25519"]
+    sharded_msm = make_sharded_msm(grp_e, c=MSM_C)
+    pts_sh, s_sh = type(pts_e)(shard_batch(pts_e.coords)), shard_batch(s_cols_e)
+    want_msm = msm_launches(B, 32, MSM_C)
+    sh_msm, _ = counted("sharded_msm", lambda: sharded_msm(pts_sh, s_sh),
+                        {"ed_add": want_msm["ed_add"] + 1, "ed_double": want_msm["ed_double"]},
+                        add_mode="full")
+    if col_rows(grp_e.compress(sh_msm))[0] != local_e:
+        raise RuntimeError("sharded MSM differs from msm_local and the oracle")
+    example_ok, _ = counted("msm_sharded_example", lambda: msm_sharded_example(wdev),
+                            {"pow_sec2_kernel": 1})
+    # the dry run's ranks are new processes: they load the kernel libraries
+    # built above, and rebuild none
+    libs_before = {q.name: q.stat().st_mtime_ns for q in build.BUILD_DIR.glob("*.so")}
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    dry = entry.dryrun_multichip(n_cards, "cuda")
+    dryrun_s = time.perf_counter() - t0
+    if dry != {"counts": [2 * n_cards] * n_cards, "msm": True}:
+        raise RuntimeError(f"dryrun_multichip: {dry}")
+    if {q.name: q.stat().st_mtime_ns for q in build.BUILD_DIR.glob("*.so")} != libs_before:
+        raise RuntimeError("the dry run's ranks rebuilt kernel libraries")
+
+    def in_turns(fns, reps=3):
+        """host_rate of each of fns, one call at a time, in turns: a, b,
+        b, a, a, b."""
+        runs = [[] for _ in fns]
+        for i in range(reps):
+            order = list(enumerate(fns))
+            for j, fn in (order if i % 2 == 0 else order[::-1]):
+                runs[j] += host_rate(fn, 1)
+        return runs
+
+    sh_times = dict(zip(("sharded_verify_s", "verify_core_s"), in_turns(
+        [lambda: sharded_verify(*sh_cols), lambda: pe.verify_core(*sh_inputs, tables)])))
+    sh_times.update(zip(("sharded_msm_s", "msm_local_s"), in_turns(
+        [lambda: sharded_msm(pts_sh, s_sh), msm_cores["msm_local_edwards25519"]])))
+    count_t = sh_count.clone()
+    sums = torch.zeros((4, 10, -(-32 * 8 // MSM_C)), dtype=torch.int32, device=wdev)
+    parts = [torch.empty_like(sums)]
+    collectives_ms = {"all_reduce_count": events_ms(lambda: dist.all_reduce(count_t), 100),
+                      "all_gather_window_sums": events_ms(lambda: dist.all_gather(parts, sums), 100)}
+    sh_profiles = {"sharded_verify": device_profile(lambda: sharded_verify(*sh_cols)),
+                   "sharded_msm": device_profile(lambda: sharded_msm(pts_sh, s_sh))}
+    dist.destroy_process_group()
+    rendezvous.cleanup()
+    emit({"phase": "sharded", "card": card, "B": B, "c": MSM_C,
+          "world": {"backend": backend, "ranks": 1, "device": str(wdev),
+                    "why_one_rank": "one card on this machine; NCCL takes one card a rank, "
+                                    "so worlds of 2 and 4 are checked on gloo CPU ranks only"},
+          "nccl_init_s": nccl_init_s,
+          "verify": {"count": int(sh_count),
+                     "rejected_lanes": torch.nonzero(~sh_ok).flatten().tolist(),
+                     "mask_equals_verify_core": True,
+                     "launches": path_counts["sharded_verify"]},
+          "msm": {"check": "compress equals msm_local's and the oracle's",
+                  "launches": {k: v for k, v in path_counts["sharded_msm"].items() if v},
+                  "msm_local_launches": want_msm},
+          "msm_sharded_example": {"ok": example_ok,
+                                  "launches": {k: v for k, v in
+                                               path_counts["msm_sharded_example"].items() if v}},
+          "dryrun_multichip": {"ranks": n_cards, "report": dry, "s": dryrun_s,
+                               "kernel_libraries_rebuilt": 0},
+          "host_clock": sh_times,
+          "collectives_ms": collectives_ms,
+          "collectives_timer": "CUDA events around 100 host-issued calls",
+          "host_clock_timer": "host_rate of each call, sharded and unsharded in turns",
+          "profile": sh_profiles})
 
     # -- every launch shape of the paths against the plain version -----------
     # the shapes the paths gave each kernel (group.launch_shapes over every

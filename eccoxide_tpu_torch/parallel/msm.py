@@ -1,9 +1,10 @@
-"""Pippenger multi-scalar multiplication over any group of the port.
+"""Pippenger multi-scalar multiplication over any group of the port, on one
+device or batch-sharded over a world of ranks.
 
 Counterpart of ``msm_local``, ``msm_local_window_sums``,
-``msm_multi_prefix`` and their helpers in the JAX package's
-``parallel/msm.py``. A group is a curve object (``curves.curve25519.EDWARDS``,
-a SEC2 ``WeierstrassCurveSpec``) with ``identity``, ``add``, ``neg`` and
+``msm_multi_prefix``, ``make_sharded_msm``, ``msm_sharded_example`` and
+their helpers in the JAX package's ``parallel/msm.py``. A group is a curve
+object (``curves.curve25519.EDWARDS``, a SEC2 ``WeierstrassCurveSpec``) with ``identity``, ``add``, ``neg`` and
 ``double(p, k=...)``; its points (``ExtPoint``, ``ProjPoint``) keep their
 packed coordinates, (coordinates, limbs, *batch), in ``coords``, and
 ``type(p)(tensor)`` makes a point of the same class. On edwards25519 a
@@ -15,8 +16,13 @@ makes any order of additions and identity padding safe.
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from . import world
 
 
 def _window_digits(scalar_bytes, c: int, n_windows: int):
@@ -146,14 +152,77 @@ def msm_local_window_sums(group, pts, digits, c: int):
     return type(pts)(_bucket_sums(group, type(pts), ds.contiguous(), x, c)[..., 0])
 
 
+def _window_sums(group, pts, scalar_bytes, c: int):
+    """The c-bit windows' bucket sums of the points ``pts`` (batch (B,))
+    and their (nbytes, B) LE scalar bytes: a point batch of width
+    n_windows."""
+    n_windows = -(-scalar_bytes.shape[0] * 8 // c)
+    return msm_local_window_sums(group, pts, _window_digits(scalar_bytes, c, n_windows), c)
+
+
 def msm_local(group, pts, scalar_bytes, c: int = 8):
     """sum_i [s_i] P_i (batch (1,)) for points ``pts`` of batch (B,) and
     (nbytes, B) LE scalar bytes (JAX parallel/msm.py:114-123): the c-bit
     windows' bucket sums, then one Horner fold."""
-    n_windows = -(-scalar_bytes.shape[0] * 8 // c)
-    digits = _window_digits(scalar_bytes, c, n_windows)
-    ws = msm_local_window_sums(group, pts, digits, c)
-    return _horner_fold(group, ws, n_windows, c)
+    ws = _window_sums(group, pts, scalar_bytes, c)
+    return _horner_fold(group, ws, ws.coords.shape[-1], c)
+
+
+def make_sharded_msm(grp, c: int = 8):
+    """The batch-sharded MSM over the world (JAX parallel/msm.py:125-165):
+    ``call(pts, scalar_bytes)`` on this rank's shard (points of batch
+    (B/D,), (nbytes, B/D) LE scalar bytes, from ``batch_verify.shard_batch``)
+    returns sum_i [s_i] P_i over the whole batch, batch (1,). Every rank
+    calls it at once. It is ``msm_local`` with the D ranks' window sums
+    gathered and added in rank order between the bucket sums and the
+    Horner fold, so every rank ends with the same coordinates. Raises
+    without a process group, and when its backend does not serve the
+    points' device."""
+
+    def call(pts, scalar_bytes):
+        world.check_group(pts.coords.device)
+        local = _window_sums(grp, pts, scalar_bytes, c)
+        # Summed from the identity, as JAX's fori_loop does: D adds of
+        # width n_windows, one more than a start from the first part would
+        # take, so that the launches are JAX's.
+        acc = grp.identity(local.coords.shape[-1:], local.coords.device)
+        for part in world.gathered(local.coords):
+            acc = grp.add(acc, type(local)(part))
+        return _horner_fold(grp, acc, acc.coords.shape[-1], c)
+
+    return call
+
+
+def msm_sharded_example(device="cuda") -> bool:
+    """The multichip dry run's sharded MSM (JAX parallel/msm.py:510-552): on
+    p192k1, B = 2D points [b_i]G with scalars k_i from random.Random(5), c =
+    4. Every rank of the world makes the whole input from the seed, takes
+    its shard and runs ``make_sharded_msm``; the affine sum must equal the
+    integer oracle's, else it raises. Returns True."""
+    from .. import oracle
+    from ..curves import sec2
+    from .batch_verify import shard_batch
+
+    dev = world.check_group(device)
+    name = "p192k1"
+    spec, o = sec2.get_curve(name), oracle.sec2_curve(name)
+    rng = random.Random(5)
+    B = 2 * dist.get_world_size()
+    ks = [rng.randrange(1, o.order) for _ in range(B)]
+    base_pts = [o.mul_base(rng.randrange(1, o.order)) for _ in range(B)]
+    f = spec.field
+    pts = spec.from_affine(f.encode_ints([pt[0] for pt in base_pts], dev),
+                           f.encode_ints([pt[1] for pt in base_pts], dev))
+    nb = spec.scalar.n_bytes
+    sc = np.array([list(k.to_bytes(nb, "little")) for k in ks], dtype=np.int32).T
+    out = make_sharded_msm(spec, c=4)(type(pts)(shard_batch(pts.coords)), shard_batch(sc))
+    ax, ay = spec.to_affine(out)
+    exp = None
+    for k, pt in zip(ks, base_pts):
+        exp = o.add(exp, o.mul(k, pt))
+    if (f.decode_ints(ax)[0], f.decode_ints(ay)[0]) != exp:
+        raise RuntimeError("sharded MSM differs from the oracle")
+    return True
 
 
 def msm_multi_prefix(group, terms, c: int = 12):

@@ -12,8 +12,10 @@ import sys
 import pytest
 import torch
 
+from eccoxide_tpu_torch.entry import dryrun_multichip
 from eccoxide_tpu_torch.field448 import FQ448
 from eccoxide_tpu_torch.ops import build, group
+from eccoxide_tpu_torch.parallel.batch_verify import make_sharded_verify
 from eccoxide_tpu_torch.protocol import api
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
@@ -73,6 +75,7 @@ def test_entry_points_default_to_the_card():
         lambda: api.X448SecretKey(bytes(56)).public_key(),
         lambda: api.Ed25519SecretKey(pk).sign(b""),
         lambda: api.Ed25519Keypair(pk),
+        lambda: make_sharded_verify(), lambda: dryrun_multichip(1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError):
