@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: Ed25519 verification,
 key generation and signing, X25519 and X448, the 15 SEC2 curves,
-ristretto255, the field API, the MSM and the sharded layer.
+ristretto255, the field API, the MSMs, the sharded layer and the entry
+module's verify and weak-scaling harness.
 
     python3 chip_smoke.py
 
@@ -31,7 +32,14 @@ world of one on the card (phase ``sharded``: ``make_sharded_verify`` at
 B=32768 with one tampered lane against ``verify_core``, ``make_sharded_msm``
 on the edwards25519 MSM inputs against ``msm_local``, ``msm_sharded_example``
 and ``entry.dryrun_multichip`` in a spawned process; worlds of 2 and 4 need
-a card a rank, and are checked on gloo CPU ranks by the tests). It
+a card a rank, and are checked on gloo CPU ranks by the tests);
+``msm_local_prefix`` at JAX's c=12 on the edwards25519 MSM inputs against
+``msm_local`` and the oracle (timed in turns with it, one profiled call),
+and on p192k1 at B=256 with c=5 against the oracle; the JAX entry's
+counterpart ``entry.entry`` (its verify all True on the example batch of
+8) and ``entry.weak_scaling`` over every card with 32768 signatures a
+card. The verifiers' fixed lanes hold the two negative-zero triples (x = 0
+with the sign bit as the key or as R), which every verifier refuses. It
 counts the kernel launches of each path, with the counts set to 0 just
 before it, records the shape of each launch (width in lanes,
 mode, run length, field and exponent) and holds the kernel against its
@@ -90,6 +98,8 @@ ORDER_CHECK_LANES = ((0, 0), (0, 1), (1, 1), (0, 511), (0, 512), (0, 513), (0, 7
 FIELD_API_LANES = 64     # lanes of the field_api phase held against Python ints
 BINGCD_LANES = 256       # lanes of the binary-GCD inverse (plain torch, thousands of launches)
 MSM_C = 8
+PREFIX_C = 12            # msm_local_prefix's window: JAX's default
+PREFIX_P192K1_B = 256    # the p192k1 check of msm_local_prefix (c = 5)
 R_DISTINCT = 512         # distinct oracle encodings tiled over the ristretto255 decode batch
 BINGCD_FIELDS = ("FL", "FQ", "FQ448", "p256r1_n", "p521r1_n")
 
@@ -392,7 +402,7 @@ def main() -> int:
     from eccoxide_tpu_torch.curves import ristretto255 as rz
     from eccoxide_tpu_torch.field import FL, FQ, L, P, TIGHT
     from eccoxide_tpu_torch.field_sec2 import field_of
-    from eccoxide_tpu_torch.parallel.msm import msm_local
+    from eccoxide_tpu_torch.parallel.msm import msm_local, msm_local_prefix
     from eccoxide_tpu_torch.params.comb import mul_base as mul_base_ed
     from eccoxide_tpu_torch.field448 import FQ448
     from eccoxide_tpu_torch.ops import build, group, sha512
@@ -686,9 +696,23 @@ def main() -> int:
     t_msgs[1000] = msgs[1000] + b"!"
     t_pks[17000] = (P + 3).to_bytes(32, "little")
     t_sigs[32000] = (1 | 1 << 255).to_bytes(32, "little") + sigs[32000][32:]
+    # negative zero (x = 0 with the sign bit, RFC 8032 5.1.3 step 4) as the
+    # key or as R of the identity's equation [0]B = R + [k]A: without the
+    # sign bit both triples hold, with it every verifier refuses them
+    identity_enc, neg_zero = (1).to_bytes(32, "little"), (1 | 1 << 255).to_bytes(32, "little")
+    neg_zero_lanes = {5000: ("A = -0, R = identity, S = 0", neg_zero, identity_enc),
+                      6000: ("A = identity, R = -0, S = 0", identity_enc, neg_zero)}
+
+    def put_neg_zero(pks_, sigs_):
+        for i, (_, a_enc, r_enc) in neg_zero_lanes.items():
+            pks_[i], sigs_[i] = a_enc, r_enc + bytes(32)
+
+    put_neg_zero(t_pks, t_sigs)
+    bad.update({i: v[0] for i, v in neg_zero_lanes.items()})
     oracle_bad = [oracle.verify(t_pks[i], t_msgs[i], t_sigs[i]) for i in bad]
     oracle_good = [oracle.verify(pks[i], msgs[i], sigs[i]) for i in range(16)]
-    if any(oracle_bad) or not all(oracle_good):
+    plain_zero = oracle.verify(identity_enc, msgs[0], identity_enc + bytes(32))
+    if any(oracle_bad) or not all(oracle_good) or not plain_zero:
         raise RuntimeError("the integer oracle disagrees with the vectors")
 
     # -- phases 3 and 4: the main path, with launches counted ----------------
@@ -728,9 +752,10 @@ def main() -> int:
     rlc_s = time.perf_counter() - t0
     after_valid = group.launches()
     forged = 12345
-    f_sigs = list(sigs)
+    f_pks, f_sigs = list(pks), list(sigs)
     f_sigs[forged] = flip_s(sigs[forged])
-    rlc_forged = pb.verify_batch_host(pks, msgs, f_sigs, rng=np.random.default_rng(8),
+    put_neg_zero(f_pks, f_sigs)
+    rlc_forged = pb.verify_batch_host(f_pks, msgs, f_sigs, rng=np.random.default_rng(8),
                                       device="cuda", tables=tables)
     torch.cuda.synchronize()
     counts = group.launches()
@@ -743,10 +768,12 @@ def main() -> int:
         raise RuntimeError("the valid batch fell back to the per-signature verifier")
     if after_valid["ed_double"] - before["ed_double"] != 33:
         raise RuntimeError("the valid batch did not run 33 doubling launches")
-    if [i for i in range(B) if not rlc_forged[i]] != [forged]:
-        raise RuntimeError("verify_batch_host did not isolate exactly the forged lane")
+    if [i for i in range(B) if not rlc_forged[i]] != sorted([forged, *neg_zero_lanes]):
+        raise RuntimeError("verify_batch_host did not isolate exactly the forged and "
+                           "negative-zero lanes")
     emit({"phase": "rlc_verify_batch_host", "B": B, "msm_c": 8,
           "valid_batch_accepted": True, "forged_lane": forged,
+          "negative_zero_lanes": {str(i): v[0] for i, v in neg_zero_lanes.items()},
           "rejected_lanes": [i for i in range(B) if not rlc_forged[i]],
           "first_call_s": rlc_s,
           "launches_valid_batch": {k: after_valid[k] - before[k] for k in counts}})
@@ -1289,6 +1316,72 @@ def main() -> int:
           "collectives_timer": "CUDA events around 100 host-issued calls",
           "host_clock_timer": "host_rate of each call, sharded and unsharded in turns",
           "profile": sh_profiles})
+
+    # -- phase 14: msm_local_prefix at JAX's c = 12 -------------------------------
+    # edwards25519 on the msm_local phase's inputs, against msm_local's (c =
+    # 8) and the oracle's sum; c = 12 gives 22 windows, bucket trees of
+    # 4095 partial sums and runs of 12 doublings (new launch shapes, held
+    # against the plain versions in path_shapes_vs_plain); then p192k1 at B
+    # = 256 and c = 5 (the JAX test's window) against the oracle, not timed
+    grp_e, pts_e, s_cols_e, local_e = msm_inputs["edwards25519"]
+    want_prefix = msm_launches(B, 32, PREFIX_C)
+    prefix_out, _ = counted("msm_local_prefix", lambda: msm_local_prefix(grp_e, pts_e, s_cols_e),
+                            want_prefix, add_mode="full")
+    prefix_shapes = {k: sorted(v) for k, v in group.launch_shapes().items() if v}
+    if col_rows(grp_e.compress(prefix_out))[0] != local_e:
+        raise RuntimeError("msm_local_prefix differs from msm_local and the oracle")
+    prefix_times = dict(zip(("msm_local_prefix_s", "msm_local_s"), in_turns(
+        [lambda: msm_local_prefix(grp_e, pts_e, s_cols_e), msm_cores["msm_local_edwards25519"]])))
+    prefix_profile = device_profile(lambda: msm_local_prefix(grp_e, pts_e, s_cols_e))
+    k192, o192 = sec2.get_curve("p192k1"), oracle.sec2_curve("p192k1")
+    rng192 = np.random.default_rng(192)
+    a192 = distinct_scalars(o192, PREFIX_P192K1_B, rng192)
+    s192 = [int.from_bytes(rng192.bytes(k192.scalar.n_bytes), "little") % o192.order
+            for _ in range(PREFIX_P192K1_B)]
+    s192[0] = 0
+    pts192 = k192.mul_base(scalar_cols(k192, a192))
+    out192, _ = counted("msm_local_prefix_p192k1",
+                        lambda: msm_local_prefix(k192, pts192, scalar_cols(k192, s192), c=5), {})
+    k_sum = sum(si * ai for si, ai in zip(s192, a192)) % o192.order
+    if col_rows(k192.compress(out192))[0] != o192.compress(o192.mul_base(k_sum)):
+        raise RuntimeError("msm_local_prefix on p192k1 differs from the oracle")
+    emit({"phase": "msm_local_prefix", "card": card, "B": B, "c": PREFIX_C,
+          "check": "compress equals msm_local's (c = 8) and the oracle's",
+          "launches": {k: v for k, v in path_counts["msm_local_prefix"].items() if v},
+          "launch_shapes": prefix_shapes,
+          "host_clock": prefix_times,
+          "host_clock_timer": "host_rate of each call, prefix (c = 12) and msm_local (c = 8) in turns",
+          "profile": prefix_profile,
+          "p192k1": {"B": PREFIX_P192K1_B, "c": 5, "check": "compress equals the oracle's",
+                     "timed": False}})
+
+    # -- phase 15: the JAX entry's verify and the weak-scaling harness ---------
+    fn_entry, entry_args = entry.entry("cuda")
+    entry_ok, _ = counted("entry", lambda: fn_entry(*entry_args),
+                          {"ed_add": sum(STRAUS_ADDS.values()), "ed_double": 64,
+                           "pow_const_kernel": 2}, add_mode=STRAUS_ADDS)
+    if entry_ok.tolist() != [True] * 8:
+        raise RuntimeError(f"entry's verify: {entry_ok.tolist()}")
+    emit({"phase": "entry", "B": 8, "all_true": True,
+          "launches": {k: v for k, v in path_counts["entry"].items() if v}})
+    try:
+        entry.weak_scaling(n_cards + 1, device="cuda")
+        raise RuntimeError("weak_scaling ran more ranks than cards")
+    except ValueError as err:
+        too_many = str(err)
+    # the ranks are new processes: they load the kernel libraries built
+    # above and rebuild none; their launches are not counted here
+    t0 = time.perf_counter()
+    scaling = entry.weak_scaling(n_cards, b_per_device=B, device="cuda")
+    scaling_s = time.perf_counter() - t0
+    if {q.name: q.stat().st_mtime_ns for q in build.BUILD_DIR.glob("*.so")} != libs_before:
+        raise RuntimeError("the weak-scaling ranks rebuilt kernel libraries")
+    emit({"phase": "weak_scaling", "card": card, "cards": n_cards, "b_per_device": B, "reps": 4,
+          "report": scaling, "s": scaling_s,
+          "more_ranks_than_cards": too_many,
+          "note": ("one card: the only world is one rank, and the efficiency is t1 "
+                   "over t1, which says nothing of scaling" if n_cards == 1 else
+                   f"{n_cards} cards, one NCCL rank a card")})
 
     # -- every launch shape of the paths against the plain version -----------
     # the shapes the paths gave each kernel (group.launch_shapes over every

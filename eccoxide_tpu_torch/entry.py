@@ -1,21 +1,28 @@
-"""The multichip dry run: the sharded verifier and the sharded MSM driven
-over a world of n ranks, and the rank functions it and the tests spawn.
+"""The JAX entry module's counterpart: the verify with its example
+arguments, the multichip dry run, the weak-scaling harness, and the rank
+functions they and the tests spawn.
 
-Counterpart of the host half of the JAX entry module at the repository's
-root (``_example_verify_batch``, ``dryrun_multichip``). Its weak-scaling harness
-is not ported: it means something only with two cards or more.
+Counterpart of the JAX entry module at the repository's root
+(``_example_verify_batch``, ``entry``, ``dryrun_multichip``,
+``weak_scaling``). The JAX functions run over a device mesh in one
+process; here a world of n ranks is n processes (``parallel.world.spawn``),
+one card a rank on NCCL, one CPU process a rank on gloo.
 
-    from eccoxide_tpu_torch.entry import dryrun_multichip
+    from eccoxide_tpu_torch.entry import dryrun_multichip, entry, weak_scaling
+    fn, args = entry()                              # fn(*args): 8 x True
     dryrun_multichip(torch.cuda.device_count())     # NCCL, one rank a card
     dryrun_multichip(4, device="cpu")               # gloo, four processes
+    weak_scaling(torch.cuda.device_count(), b_per_device=32768)
 """
 
 from __future__ import annotations
 
 import random
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import oracle
 from .device import resolve_device
@@ -23,17 +30,26 @@ from .ops.sha512 import sha512_batch
 from .parallel.batch_verify import make_sharded_verify, shard_batch
 from .parallel.msm import make_sharded_msm, msm_sharded_example
 from .parallel.world import gathered, spawn
+from .protocol.ed25519 import VerifyTables, public_keys_host, sign_host, verify_core
 
 
-def example_verify_batch(B: int):
+def example_verify_batch(B: int, device=None):
     """B valid Ed25519 signatures as int32 byte columns (pk (32, B), R (32,
     B), S (32, B), H(R || A || M) (64, B)) from random.Random(1234): the
-    bytes of the JAX entry module's example batch."""
+    bytes of the JAX entry module's example batch. The keys and signatures
+    come from the integer oracle, or, given a ``device``, from the port's
+    ``public_keys_host`` and ``sign_host`` there: the same bytes (Ed25519
+    signing is deterministic) at the batch sizes of a timing run, where
+    the oracle takes milliseconds a signature."""
     rng = random.Random(1234)
     sks = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(B)]
     msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(B)]
-    pks = [oracle.public_key(sk) for sk in sks]
-    sigs = [oracle.sign(sk, m) for sk, m in zip(sks, msgs)]
+    if device is None:
+        pks = [oracle.public_key(sk) for sk in sks]
+        sigs = [oracle.sign(sk, m) for sk, m in zip(sks, msgs)]
+    else:
+        pks = public_keys_host(sks, device)
+        sigs = sign_host(sks, msgs, device)
     rs = [s[:32] for s in sigs]
     ss = [s[32:] for s in sigs]
     k_wide = sha512_batch([r + pk + m for r, pk, m in zip(rs, pks, msgs)])
@@ -101,3 +117,57 @@ def dryrun_multichip(n: int, device="cuda") -> dict:
     report. Raises before any process starts when the card or NCCL is
     missing."""
     return spawn(dryrun_rank, n, device, n)
+
+
+def entry(device="cuda"):
+    """``(fn, args)``: the batched Ed25519 verify and its example arguments
+    (JAX entry module, ``entry``). ``fn`` is ``verify_core``; ``args`` are
+    the byte columns of ``example_verify_batch(8)`` on ``device`` and the
+    verifier's tables there, and ``fn(*args)`` is eight True."""
+    dev = resolve_device(device)
+    cols = (torch.from_numpy(a).to(dev) for a in example_verify_batch(8))
+    return verify_core, (*cols, VerifyTables(dev))
+
+
+def weak_scaling_rank(device, b_per_device: int, reps: int) -> float:
+    """One rank of ``weak_scaling``: the sharded verify of
+    ``example_verify_batch(b_per_device * D)`` (signed on this rank's
+    device), one call that must count the whole batch, then ``reps`` timed
+    calls after a barrier, ending in ``torch.cuda.synchronize()`` on a
+    card. Returns the seconds a call, the largest over the ranks."""
+    B = b_per_device * dist.get_world_size()
+    verify = make_sharded_verify(device)
+    args = [shard_batch(a) for a in example_verify_batch(B, device)]
+    ok, count = verify(*args)
+    if int(count) != B:
+        raise RuntimeError(f"sharded verify rejected a valid batch: {int(count)} of {B}")
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ok, count = verify(*args)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    secs = torch.tensor([(time.perf_counter() - t0) / reps], dtype=torch.float64, device=device)
+    dist.all_reduce(secs, op=dist.ReduceOp.MAX)
+    return float(secs)
+
+
+def weak_scaling(n_devices: int, b_per_device: int = 64, reps: int = 4, device="cuda") -> dict:
+    """The weak-scaling harness (JAX entry module, ``weak_scaling``): the
+    sharded verify timed in a world of one rank and in a world of
+    ``n_devices`` ranks (``spawn``) with the same batch a rank; the
+    efficiency is t(1) / t(n). Returns JAX's keys and rounding: ``t1_s``,
+    ``t{n}_s`` (4 places), ``weak_scaling_efficiency`` (3). On the card
+    each rank needs a card of its own: more ranks than cards raise
+    ``ValueError`` before any run. With one rank the efficiency is 1 and
+    says nothing of scaling; gloo ranks share the host's cores, so their
+    number says nothing of the cards either."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and n_devices > torch.cuda.device_count():
+        raise ValueError(f"weak scaling over {n_devices} ranks needs {n_devices} cards, "
+                         f"this machine has {torch.cuda.device_count()}")
+    times = {nd: spawn(weak_scaling_rank, nd, dev, b_per_device, reps)
+             for nd in sorted({1, n_devices})}
+    return {"t1_s": round(times[1], 4),
+            f"t{n_devices}_s": round(times[n_devices], 4),
+            "weak_scaling_efficiency": round(times[1] / times[n_devices], 3)}

@@ -63,10 +63,12 @@ def _decompress(b: bytes):
         x = x * pow(2, (P - 1) // 4, P) % P
         if (x * x - x2) % P:
             return None
-    if x & 1 != sign:
-        x = P - x
+    # RFC 8032 5.1.3 step 4: x = 0 with the sign bit set is rejected before
+    # the sign is applied (negating 0 gives P, which would pass a later test)
     if x == 0 and sign:
         return None
+    if x & 1 != sign:
+        x = P - x
     return (x, y)
 
 

@@ -2,6 +2,7 @@
 device or batch-sharded over a world of ranks.
 
 Counterpart of ``msm_local``, ``msm_local_window_sums``,
+``msm_local_prefix``, ``msm_local_window_sums_prefix``,
 ``msm_multi_prefix``, ``make_sharded_msm``, ``msm_sharded_example`` and
 their helpers in the JAX package's ``parallel/msm.py``. A group is a curve
 object (``curves.curve25519.EDWARDS``, a SEC2 ``WeierstrassCurveSpec``) with ``identity``, ``add``, ``neg`` and
@@ -166,6 +167,28 @@ def msm_local(group, pts, scalar_bytes, c: int = 8):
     windows' bucket sums, then one Horner fold."""
     ws = _window_sums(group, pts, scalar_bytes, c)
     return _horner_fold(group, ws, ws.coords.shape[-1], c)
+
+
+def msm_local_window_sums_prefix(group, pts, digits, c: int):
+    """The JAX prefix-scan form of the window sums (JAX
+    parallel/msm.py:209-262): per window, sum_j j B_j = (2^c - 1) S_total -
+    sum_{j < 2^c - 1} S_j, S_j the sum of the points with digit <= j, read
+    from a prefix sum of the points sorted by digit. That is the form
+    ``msm_local_window_sums`` already computes (``_sorted_windows``,
+    ``_bucket_sums``), so this is the same computation: the same group
+    elements as JAX's, not the same projective coordinates. JAX's ``ops``
+    argument (``PallasGroup`` on the TPU) has no counterpart: on CUDA
+    tensors the Edwards adds and doubling runs are the port's kernels."""
+    return msm_local_window_sums(group, pts, digits, c)
+
+
+def msm_local_prefix(group, pts, scalar_bytes, c: int = 12):
+    """sum_i [s_i] P_i (batch (1,)) by the prefix-scan window sums (JAX
+    parallel/msm.py:305-313): ``msm_local``'s contract, with JAX's default
+    window c = 12 (ceil(8 nbytes / 12) windows of 2^12 - 1 partial sums,
+    a Horner fold of runs of 12 doublings). ``msm_local`` already runs on
+    the prefix-scan window sums, so this is ``msm_local`` at JAX's c."""
+    return msm_local(group, pts, scalar_bytes, c)
 
 
 def make_sharded_msm(grp, c: int = 8):

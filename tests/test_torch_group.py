@@ -13,7 +13,7 @@ from eccoxide_tpu.curves import curve25519 as jc
 from eccoxide_tpu.curves.edwards import ExtPoint as JExt
 from eccoxide_tpu.oracle.curve import ECurve
 from eccoxide_tpu.params import comb as jcomb
-from eccoxide_tpu_torch import convert
+from eccoxide_tpu_torch import convert, oracle
 from eccoxide_tpu_torch.curves import curve25519 as tc
 from eccoxide_tpu_torch.curves.edwards import ExtPoint
 from eccoxide_tpu_torch.field import FQ, SQRT_M1, WIDTHS
@@ -141,6 +141,9 @@ def test_decompress_matches_jax_with_rejections():
     jpt, jok = J("decompress", JED.decompress)(by)
     assert tok.tolist() == np.asarray(jok).tolist()
     assert tok.tolist()[:10] == [True] * 4 + [False, False, False, True, False, True]
+    # the port's oracle decides as the device packages do, negative zero
+    # (x = 0 with the sign bit) included
+    assert [oracle._decompress(e) is not None for e in encs] == tok.tolist()
     okm = np.asarray(jok)
     for a, b in zip(_canon_port(tpt), _canon_jax(jpt)):
         assert np.array_equal(a[:, okm], b[:, okm])
