@@ -38,7 +38,13 @@ a card a rank, and are checked on gloo CPU ranks by the tests);
 and on p192k1 at B=256 with c=5 against the oracle; the JAX entry's
 counterpart ``entry.entry`` (its verify all True on the example batch of
 8) and ``entry.weak_scaling`` over every card with 32768 signatures a
-card. The verifiers' fixed lanes hold the two negative-zero triples (x = 0
+card; and the two measurement entry points as a user runs them (phase
+``bench``: ``python -m eccoxide_tpu_torch.bench``, whose last record must
+be RLC verify at B=32768, and ``python -m eccoxide_tpu_torch.bench_suite
+8192 --out chiprun_out/suite_torch.json``, which must hold every metric
+name of the JAX ``bench_suite.py`` with a positive value; each in its own
+process, the launches and launch shapes of their records counted here).
+The verifiers' fixed lanes hold the two negative-zero triples (x = 0
 with the sign bit as the key or as R), which every verifier refuses. It
 counts the kernel launches of each path, with the counts set to 0 just
 before it, records the shape of each launch (width in lanes,
@@ -58,6 +64,7 @@ without a CUDA device the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import re
@@ -102,6 +109,8 @@ PREFIX_C = 12            # msm_local_prefix's window: JAX's default
 PREFIX_P192K1_B = 256    # the p192k1 check of msm_local_prefix (c = 5)
 R_DISTINCT = 512         # distinct oracle encodings tiled over the ristretto255 decode batch
 BINGCD_FIELDS = ("FL", "FQ", "FQ448", "p256r1_n", "p521r1_n")
+SUITE_B = 8192           # the batch of the bench phase's suite (the JAX suite's default)
+BENCH_TIMEOUT_S = 600    # each entry point of the bench phase, in its own process
 
 
 def sec2_exponents(f) -> dict:
@@ -382,6 +391,61 @@ def ptxas_report(log: str) -> dict:
         if m:
             out[cur]["registers"] = int(m.group(1))
     return out
+
+
+def jax_suite_metrics(path) -> list[str]:
+    """The metric names of the JAX ``bench_suite.py`` in its order, read from
+    its text (the script imports JAX, so it is parsed, not imported): the
+    first argument of each ``emit`` call and each constant or f-string
+    under a "metric" key, an f-string filled with the values of the
+    for-loops around it (a literal list or tuple, or ``<dict>.items()`` of
+    a dict literal assigned to that name: its keys)."""
+    tree = ast.parse(open(path).read())
+    dicts = {t.id: [ast.literal_eval(k) for k in node.value.keys]
+             for node in ast.walk(tree) if isinstance(node, ast.Assign)
+             and isinstance(node.value, ast.Dict) for t in node.targets
+             if isinstance(t, ast.Name)}
+    names = []
+
+    def fill(node, env):
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, ast.JoinedStr):
+            return "".join(str(env[v.value.id]) if isinstance(v, ast.FormattedValue) else v.value
+                           for v in node.values)
+        return None                      # a name: emit's own parameter
+
+    def loop_values(node):
+        """(target name, values) of a for-loop whose values the text gives."""
+        it, target = node.iter, node.target
+        if (isinstance(it, (ast.List, ast.Tuple)) and isinstance(target, ast.Name)
+                and all(isinstance(e, ast.Constant) for e in it.elts)):
+            return target.id, ast.literal_eval(it)
+        if (isinstance(it, ast.Call) and isinstance(it.func, ast.Attribute)
+                and it.func.attr == "items" and isinstance(it.func.value, ast.Name)
+                and isinstance(target, ast.Tuple)):
+            return target.elts[0].id, dicts[it.func.value.id]
+        return None, [None]
+
+    def visit(node, env):
+        if isinstance(node, ast.For):
+            var, values = loop_values(node)
+            for v in values:
+                for child in node.body:
+                    visit(child, env if var is None else {**env, var: v})
+            return
+        found = []
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "emit":
+            found.append(node.args[0])
+        if isinstance(node, ast.Dict):
+            found += [v for k, v in zip(node.keys, node.values)
+                      if isinstance(k, ast.Constant) and k.value == "metric"]
+        names.extend(n for n in (fill(f, env) for f in found) if n is not None)
+        for child in ast.iter_child_nodes(node):
+            visit(child, env)
+
+    visit(tree, {})
+    return names
 
 
 def main() -> int:
@@ -1383,22 +1447,6 @@ def main() -> int:
                    "over t1, which says nothing of scaling" if n_cards == 1 else
                    f"{n_cards} cards, one NCCL rank a card")})
 
-    # -- every launch shape of the paths against the plain version -----------
-    # the shapes the paths gave each kernel (group.launch_shapes over every
-    # counted run) that phase 2 and the order instances' checks did not hold
-    # against the plain version, held now
-    t0 = time.perf_counter()
-    unchecked = {k: path_shapes[k] - checked_shapes[k] for k in path_shapes}
-    for name, shapes in unchecked.items():
-        for shape in sorted(shapes, key=lambda s: [getattr(a, "p", a) for a in s]):
-            check_shape(name, shape)
-    emit({"phase": "path_shapes_vs_plain", "tolerance": "exact on canonical limbs",
-          "path_shapes": {k: len(v) for k, v in path_shapes.items()},
-          "checked_before": {k: len(path_shapes[k] & checked_shapes[k]) for k in path_shapes},
-          "checked_now": {k: len(v) for k, v in unchecked.items()},
-          "widths_checked_now": {k: sorted({s[-1] for s in v}) for k, v in unchecked.items()},
-          "max_abs_err": max_err, "s": time.perf_counter() - t0})
-
     # -- phase 8: kernel times -------------------------------------------------
     sources = {
         "ed_add": "eccoxide_tpu/ops/pallas_group.py:93 (_add_call, pallas_call :110, via pallas_add :144)",
@@ -1562,6 +1610,95 @@ def main() -> int:
                 **{name: device_profile(fn) for name, fn in ristretto_cores.items()},
                 **{name: device_profile(fn) for name, fn in msm_cores.items()}}
     emit({"phase": "profile", "card": card, "B": B, **profiles})
+
+    # -- phase 16: the measurement entry points, as a user runs them ---------
+    # each in its own process (the ladder starts a child per rung), which
+    # loads the kernel libraries built above; a record carries its run's
+    # launches and launch shapes (ops.group.launch_report), counted from 0
+    # in the process that ran it, and the shapes join the paths' for the
+    # check against the plain versions below. It runs after every profile:
+    # in a run with this phase before the kernel timings, their profiles
+    # of 20 host-issued launches saw none of them
+    fields_by_p = {FQ.p: FQ, FQ448.p: FQ448, **{f.p: f for f in inst_fields.values()}}
+
+    def report_counts(path, recs):
+        counts = dict.fromkeys(group.launches(), 0)
+        for rec in recs:
+            for k, v in rec["launches"].items():
+                counts[k] += v
+            for name, *shape in rec["launch_shapes"]:
+                if name in group.POW_WRAPPERS:
+                    p, e, w = shape
+                    shape = (fields_by_p[int(p, 16)], int(e, 16), w)
+                path_shapes[name].add(tuple(shape))
+        path_counts[path] = counts
+        return counts
+
+    def run_entry(*args):
+        t0 = time.perf_counter()
+        cp = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
+                            text=True, timeout=BENCH_TIMEOUT_S)
+        if cp.returncode != 0:
+            raise RuntimeError(f"{' '.join(args)}: rc {cp.returncode}; {cp.stderr[-2000:]}")
+        return cp, time.perf_counter() - t0
+
+    bench_t0 = time.perf_counter()
+    ladder, ladder_s = run_entry("eccoxide_tpu_torch.bench")
+    ladder_recs = [json.loads(ln) for ln in ladder.stdout.splitlines() if ln.startswith("{")]
+    head = ladder_recs[-1] if ladder_recs else {}
+    if "error" in head or not head.get("value", 0) > 0:
+        raise RuntimeError(f"the bench ladder banked no number: {head}; {ladder.stderr[-2000:]}")
+    if (head["metric"], head.get("batch"), head.get("method")) != (
+            "ed25519_verify_per_sec_chip", B, "rlc_batch"):
+        raise RuntimeError(f"the bench ladder's last line is not RLC verify at {B}: {head}")
+    if "vs_baseline" in head or head["device"] != {"name": card_line.rsplit(",", 1)[0].strip(),
+                                                   "power_limit": card["power_limit"]}:
+        raise RuntimeError(f"the bench record's device or keys are wrong: {head}")
+    # every rung the ladder banked printed its record once, and the best again last
+    bench_counts = report_counts("bench", ladder_recs[:-1])
+    suite_path = os.path.join(root, "chiprun_out", "suite_torch.json")
+    os.makedirs(os.path.dirname(suite_path), exist_ok=True)
+    _, suite_s = run_entry("eccoxide_tpu_torch.bench_suite", str(SUITE_B), "--out", suite_path)
+    with open(suite_path) as fh:
+        suite_out = json.load(fh)
+    names = [r["metric"] for r in suite_out["results"]]
+    missing = [n for n in jax_suite_metrics(os.path.join(root, "bench_suite.py")) if n not in names]
+    not_positive = [r["metric"] for r in suite_out["results"] if not r["value"] > 0]
+    if missing or not_positive:
+        raise RuntimeError(f"bench_suite: names of the JAX suite missing {missing}, "
+                           f"values not positive {not_positive}")
+    suite_counts = report_counts("bench_suite", suite_out["results"])
+    idle = {path: [k for k in want if not counts[k]] for path, counts, want in (
+        ("bench", bench_counts, ("ed_add", "ed_double", "pow_const_kernel")),
+        ("bench_suite", suite_counts, tuple(group.launches())))}
+    if any(idle.values()):
+        raise RuntimeError(f"a kernel of the bench paths never launched: {idle}")
+    print(json.dumps(head), flush=True)
+    print(json.dumps(suite_out), flush=True)
+    emit({"phase": "bench", "card": card, "s": time.perf_counter() - bench_t0,
+          "ladder_s": ladder_s, "suite_s": suite_s,
+          "ladder_records": [{k: r.get(k) for k in ("metric", "batch", "value", "method")}
+                             for r in ladder_recs[:-1]],
+          "ladder_stderr": ladder.stderr.strip().splitlines()[-12:],
+          "suite_out": os.path.relpath(suite_path, root), "suite_rows": len(names),
+          "launches": {"bench": {k: v for k, v in bench_counts.items() if v},
+                       "bench_suite": {k: v for k, v in suite_counts.items() if v}}})
+
+    # -- every launch shape of the paths against the plain version -----------
+    # the shapes the paths gave each kernel (group.launch_shapes over every
+    # counted run) that phase 2 and the order instances' checks did not hold
+    # against the plain version, held now
+    t0 = time.perf_counter()
+    unchecked = {k: path_shapes[k] - checked_shapes[k] for k in path_shapes}
+    for name, shapes in unchecked.items():
+        for shape in sorted(shapes, key=lambda s: [getattr(a, "p", a) for a in s]):
+            check_shape(name, shape)
+    emit({"phase": "path_shapes_vs_plain", "tolerance": "exact on canonical limbs",
+          "path_shapes": {k: len(v) for k, v in path_shapes.items()},
+          "checked_before": {k: len(path_shapes[k] & checked_shapes[k]) for k in path_shapes},
+          "checked_now": {k: len(v) for k, v in unchecked.items()},
+          "widths_checked_now": {k: sorted({s[-1] for s in v}) for k, v in unchecked.items()},
+          "max_abs_err": max_err, "s": time.perf_counter() - t0})
 
     # the kernels line: each kernel's first case, its graph-replay time held
     # against the profiler's per-launch time over one Straus verify_core

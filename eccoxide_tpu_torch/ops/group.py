@@ -34,7 +34,8 @@ count, each launch adds its shape to the wrapper's set ``shapes``: the
 arguments that select the kernel's work, with the width in lanes
 (``ed_add``: (mode, W); ``ed_double``: (k, need_t, W); a pow: (field, e,
 W)), so that a caller can hold the kernel against its plain version at
-every shape a path gave it.
+every shape a path gave it; ``launch_report`` gives counts and shapes as
+JSON values, for a record read in another process.
 
 The JAX package's adapter ``PallasGroup`` has no class here: the curve
 ``curves.curve25519.EDWARDS`` sends every add and double through these
@@ -326,6 +327,7 @@ def pow_sec2_kernel(f, x: torch.Tensor, e: int) -> torch.Tensor:
 pow_sec2_kernel.launches = 0
 
 WRAPPERS = (pow_const_kernel, ed_add, ed_double, pow448_kernel, pow_sec2_kernel)
+POW_WRAPPERS = ("pow_const_kernel", "pow448_kernel", "pow_sec2_kernel")
 
 
 for _w in WRAPPERS:
@@ -348,3 +350,18 @@ def launch_shapes() -> dict:
     """Wrapper name -> the shapes of its launches since the last reset."""
     return {w.__name__: set(w.shapes) for w in WRAPPERS}
 
+
+def launch_report() -> dict:
+    """The counts and shapes since the last reset as JSON values, for a
+    record that another process reads: {"launches": {wrapper: count} of
+    the wrappers that launched, "launch_shapes": sorted [wrapper, *shape]}
+    with a pow's field written as its prime and its exponent in hex."""
+    def row(name, shape):
+        if name in POW_WRAPPERS:
+            f, e, w = shape
+            return [name, hex(f.p), hex(e), w]
+        return [name, *shape]
+
+    return {"launches": {w.__name__: w.launches for w in WRAPPERS if w.launches},
+            "launch_shapes": sorted((row(w.__name__, s) for w in WRAPPERS for s in w.shapes),
+                                    key=str)}
