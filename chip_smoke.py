@@ -43,7 +43,11 @@ card; and the two measurement entry points as a user runs them (phase
 be RLC verify at B=32768, and ``python -m eccoxide_tpu_torch.bench_suite
 8192 --out chiprun_out/suite_torch.json``, which must hold every metric
 name of the JAX ``bench_suite.py`` with a positive value; each in its own
-process, the launches and launch shapes of their records counted here).
+process, the launches and launch shapes of their records counted here);
+and the entry script as a user runs it (phase ``entry_main``: ``python -m
+eccoxide_tpu_torch.entry`` in its own process, the counterpart of the JAX
+entry module's ``__main__`` block: the example verify's eight True, ``dryrun
+ok``, and the weak-scaling line only with more than one card).
 The verifiers' fixed lanes hold the two negative-zero triples (x = 0
 with the sign bit as the key or as R), which every verifier refuses. It
 counts the kernel launches of each path, with the counts set to 0 just
@@ -110,7 +114,7 @@ PREFIX_P192K1_B = 256    # the p192k1 check of msm_local_prefix (c = 5)
 R_DISTINCT = 512         # distinct oracle encodings tiled over the ristretto255 decode batch
 BINGCD_FIELDS = ("FL", "FQ", "FQ448", "p256r1_n", "p521r1_n")
 SUITE_B = 8192           # the batch of the bench phase's suite (the JAX suite's default)
-BENCH_TIMEOUT_S = 600    # each entry point of the bench phase, in its own process
+BENCH_TIMEOUT_S = 600    # each entry point of the bench and entry_main phases, in its own process
 
 
 def sec2_exponents(f) -> dict:
@@ -339,11 +343,18 @@ def mad_rate(dev, n_sm: int) -> dict:
                      "its plain version on 2 blocks"}
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, cross_check: bool = False) -> dict:
     """Device time by kernel over one call of fn (torch.profiler, after a
     warm-up call): the busy time is the sum of the kernels' device time,
     the idle share its complement in the profiled wall time; per port
-    kernel, its device time per launch (self_device_time_total / count)."""
+    kernel, its device time per launch (device time / count).
+
+    The rows come straight from the trace's device events: a kernel, copy
+    or set on the card has no children, so its duration is the self device
+    time that ``key_averages()`` reports for it, and the sums are the same.
+    ``key_averages()`` first parses the whole trace into a tree of Python
+    events, which takes minutes for the ladders' 10^5 launches. With
+    ``cross_check`` both are computed, and any difference raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -353,9 +364,22 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if "CUDA" in str(e.device_type)]
-    rows = [r for r in rows if r[1] > 0]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = [(k, ms, n) for k, (ms, n) in by_name.items() if ms > 0]
+    if cross_check:
+        ref = {e.key: (e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if "CUDA" in str(e.device_type)
+               and e.self_device_time_total > 0}
+        mine = {k: (ms, n) for k, ms, n in rows}
+        if set(ref) != set(mine) or any(
+                mine[k][1] != n or abs(mine[k][0] - ms) > 1e-6 * max(ms, 1e-3)
+                for k, (ms, n) in ref.items()):
+            raise RuntimeError(f"the trace's device events disagree with key_averages(): "
+                               f"{sorted(set(ref) ^ set(mine))[:5]}")
     busy = sum(r[1] for r in rows)
     port = sum(r[1] for r in rows if any(k in r[0] for k in PORT_KERNELS))
     top = sorted(rows, key=lambda r: -r[1])[:10]
@@ -1603,7 +1627,8 @@ def main() -> int:
           "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # -- where the device time goes: one profiled call of each core ----------
-    profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables)),
+    profiles = {"straus_core": device_profile(lambda: pe.verify_core(*inputs, tables),
+                                              cross_check=True),
                 "rlc_core": device_profile(lambda: pb.rlc_verify_core(*inputs, z, tables, msm_c=8)),
                 **{name: device_profile(fn) for name, fn in cores.items()},
                 "sec2_p256r1_exchange": device_profile(sec2_cores["p256r1"]["exchange"]),
@@ -1683,6 +1708,22 @@ def main() -> int:
           "suite_out": os.path.relpath(suite_path, root), "suite_rows": len(names),
           "launches": {"bench": {k: v for k, v in bench_counts.items() if v},
                        "bench_suite": {k: v for k, v in suite_counts.items() if v}}})
+
+    # -- phase 17: the entry script, as a user runs it -------------------------
+    # python -m eccoxide_tpu_torch.entry in its own process (the JAX entry
+    # module's __main__ block, in its order): the example verify's mask as
+    # numpy prints it, the dry run in a world of one rank a card (a spawned
+    # rank, which loads the kernel libraries built above), and the
+    # weak-scaling report only when there is more than one card
+    entry_cp, entry_s = run_entry("eccoxide_tpu_torch.entry")
+    entry_lines = entry_cp.stdout.splitlines()
+    mask_line = "entry verify: [ True  True  True  True  True  True  True  True]"
+    scaling_lines = [ln for ln in entry_lines if ln.startswith("weak scaling:")]
+    if entry_lines[:2] != [mask_line, "dryrun ok"] or len(scaling_lines) != (n_cards > 1):
+        raise RuntimeError(f"python -m eccoxide_tpu_torch.entry printed {entry_lines} on "
+                           f"{n_cards} card(s); {entry_cp.stderr[-2000:]}")
+    emit({"phase": "entry_main", "card": card, "cards": n_cards, "s": entry_s,
+          "lines": entry_lines})
 
     # -- every launch shape of the paths against the plain version -----------
     # the shapes the paths gave each kernel (group.launch_shapes over every

@@ -13,10 +13,14 @@ one card a rank on NCCL, one CPU process a rank on gloo.
     dryrun_multichip(torch.cuda.device_count())     # NCCL, one rank a card
     dryrun_multichip(4, device="cpu")               # gloo, four processes
     weak_scaling(torch.cuda.device_count(), b_per_device=32768)
+
+    python -m eccoxide_tpu_torch.entry                # all three, on the card
+    python -m eccoxide_tpu_torch.entry --device cpu   # the plain versions
 """
 
 from __future__ import annotations
 
+import argparse
 import random
 import time
 
@@ -171,3 +175,38 @@ def weak_scaling(n_devices: int, b_per_device: int = 64, reps: int = 4, device="
     return {"t1_s": round(times[1], 4),
             f"t{n_devices}_s": round(times[n_devices], 4),
             "weak_scaling_efficiency": round(times[1] / times[n_devices], 3)}
+
+
+def main(argv=None) -> None:
+    """The JAX entry module's ``__main__`` block: the example verify, whose
+    mask it prints (``entry verify: [ True ...]``) and which must be all
+    True; the dry run in a world of one rank a card (one CPU rank with
+    ``--device cpu``), then ``dryrun ok``; and, with more than one card,
+    the weak-scaling report. Without a card and without ``--device cpu`` it
+    raises before any work. Nothing is caught: any failure exits non-zero.
+
+    The ranks' functions are reached through the imported module, so a
+    spawned rank finds them by their module's name even when this module
+    runs as ``__main__`` (``python -m``)."""
+    import eccoxide_tpu_torch.entry as this
+
+    parser = argparse.ArgumentParser(
+        prog="python -m eccoxide_tpu_torch.entry",
+        description="The example Ed25519 verify, the multichip dry run and, with more "
+                    "than one card, the weak-scaling harness.")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    dev = resolve_device(parser.parse_args(argv).device)
+    fn, args = this.entry(dev)
+    out = fn(*args)
+    print("entry verify:", out.cpu().numpy(), flush=True)
+    if not bool(out.all()):
+        raise RuntimeError(f"the example batch did not verify: {out.tolist()}")
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    this.dryrun_multichip(n, dev)
+    print("dryrun ok", flush=True)
+    if n > 1:
+        print("weak scaling:", this.weak_scaling(n, device=dev), flush=True)
+
+
+if __name__ == "__main__":
+    main()

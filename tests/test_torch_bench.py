@@ -24,6 +24,8 @@ from eccoxide_tpu.oracle import ed25519 as jax_oracle
 from eccoxide_tpu.protocol.ed25519 import sha512_batch_host
 from eccoxide_tpu_torch import bench, bench_suite
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 # the keys each record adds to the JAX record's (vs_baseline left out)

@@ -4,14 +4,18 @@ The test walks the AST of every ``.py`` under ``eccoxide_tpu/``, of the
 JAX entry module and of the measurement scripts ``bench.py`` and
 ``bench_suite.py`` at the repository's root (it imports none of them, nor
 JAX): the public module-level functions and classes (104), every
-module-level function of the two scripts (13), and the public methods of
-public classes (122). Each must have an entry in ``COUNTERPARTS``: a port
-target ``"eccoxide_tpu_torch.<module>:<attr>"`` (a dotted attribute path,
-resolved with importlib), or ``("not ported", reason)``, where the reason
-names the port code that does the name's work. The not-ported entries
-are ROADMAP section 1's "Not to port" list: the TPU forms (per-limb
-lists, the fused view, the 13-bit wide reduction, the Pallas adapter),
-one helper Python has built in, and the JAX compile cache."""
+module-level function of the two scripts (13), the public module-level
+constants and aliases with ``__version__`` (59), one entry for each
+script's ``if __name__ == "__main__":`` block (3), and the public methods
+of public classes (122). Each must have an entry in ``COUNTERPARTS``: a
+port target ``"eccoxide_tpu_torch<.module>:<attr>"`` (a dotted attribute
+path, resolved with importlib; a ``__main__`` entry names the ``main`` of
+a port module that has its own ``__main__`` block), or ``("not ported",
+reason)``, where the reason names the port code that does the name's
+work. The not-ported entries are ROADMAP section 1's "Not to port" list:
+the TPU forms (per-limb lists, the fused view, the 13-bit wide reduction,
+the Pallas adapter and its lane tiling), one helper Python has built in,
+the JAX compile cache and the TPU target of the JAX bench's record."""
 
 import ast
 import importlib
@@ -60,8 +64,12 @@ _W_SAME = ("identity", "generator", "from_affine", "add", "double", "neg", "sele
            "affine_add_different", "scalar_mul", "mul_base", "compress", "decompress")
 
 COUNTERPARTS = {
-    **_keyed("curves/curve25519.py", _same("curves.curve25519", ("decode_u", "x25519_ladder"))),
-    **_keyed("curves/curve448.py", _same("curves.curve448", ("decode_u", "x448_ladder"))),
+    "__init__.py:__version__": "eccoxide_tpu_torch:__version__",
+    **_keyed("curves/curve25519.py", _same("curves.curve25519", (
+        "decode_u", "x25519_ladder", "P", "L", "FQ", "FL", "MONT", "D", "ED_GY", "ED_GX",
+        "EDWARDS", "MAP_C", "SQRT_M1"))),
+    **_keyed("curves/curve448.py", _same("curves.curve448", (
+        "decode_u", "x448_ladder", "P", "FQ", "MONT"))),
     **_keyed("curves/edwards.py", {
         "ExtPoint": "eccoxide_tpu_torch.curves.edwards:ExtPoint",
         "ExtPointB": _np("the per-limb point of the TPU kernels: `curves/edwards.py` "
@@ -77,10 +85,16 @@ COUNTERPARTS = {
     }),
     **_keyed("curves/montgomery.py", _same("curves.montgomery", (
         "MontgomeryCurveSpec", "MontgomeryCurveSpec.a24", "ladder"))),
-    **_keyed("curves/ristretto255.py", _same("curves.ristretto255", (
-        "sqrt_ratio_m1", "compress", "decompress", "eq", "elligator", "from_uniform_bytes",
-        "mul_base"))),
-    **_keyed("curves/sec2.py", _same("curves.sec2", ("get_curve",))),
+    **_keyed("curves/ristretto255.py", {
+        **_same("curves.ristretto255", (
+            "sqrt_ratio_m1", "compress", "decompress", "eq", "elligator", "from_uniform_bytes",
+            "mul_base", "FQ", "P", "SQRT_M1", "D", "SQRT_AD_MINUS_ONE", "INVSQRT_A_MINUS_D",
+            "ONE_MINUS_D_SQ", "D_MINUS_ONE_SQ", "add", "double", "neg", "identity", "generator",
+            "scalar_mul")),
+        "ED": "eccoxide_tpu_torch.curves.curve25519:EDWARDS",
+    }),
+    **_keyed("curves/sec2.py", _same("curves.sec2", ("get_curve", "FIAT_TIER", "SMALL_TIER",
+                                                     "ALL"))),
     **_keyed("curves/weierstrass.py", {
         **_same("curves.weierstrass", ("ProjPoint", "WeierstrassCurveSpec")),
         **_same("curves.weierstrass", _W_SAME, "WeierstrassCurveSpec."),
@@ -117,6 +131,9 @@ COUNTERPARTS = {
         "pallas_pow": "eccoxide_tpu_torch.ops.group:pow_const_kernel",
         "PallasGroup": _np(_PALLAS),
         **{f"PallasGroup.{m}": _np(_PALLAS) for m in ("identity", "add", "double", "neg", "select")},
+        **{n: _np("the Pallas kernels' lane tiling (widths padded to blocks of 512 lanes): "
+                  "the wrappers of `ops/group.py` launch the CUDA kernels on any width, "
+                  "a thread a lane") for n in ("LANE", "BLOCK")},
     }),
     **_keyed("ops/sha512.py", _same("ops.sha512", ("sha512_batch",))),
     **_keyed("oracle/curve.py", {
@@ -128,8 +145,13 @@ COUNTERPARTS = {
         **_same("params._intcurve", ("on_curve", "add", "mul", "mul_base"), "ECurve."),
         "mont_ladder": "eccoxide_tpu_torch.oracle:_ladder",
     }),
-    **_keyed("oracle/ed25519.py", _same("oracle", ("public_key", "sign", "verify"))),
+    **_keyed("oracle/ed25519.py", _same("oracle", ("public_key", "sign", "verify", "P", "L",
+                                                   "D", "G"))),
     **_keyed("oracle/ristretto.py", {
+        **_same("oracle", ("P", "D", "SQRT_M1", "ONE_MINUS_D_SQ", "D_MINUS_ONE_SQ",
+                           "SQRT_AD_MINUS_ONE", "INVSQRT_A_MINUS_D")),
+        "BASE": "eccoxide_tpu_torch.oracle:RISTRETTO_BASE",
+        "IDENT": "eccoxide_tpu_torch.oracle:RISTRETTO_IDENTITY",
         "mul": "eccoxide_tpu_torch.oracle:ristretto_mul",
         **{n: f"eccoxide_tpu_torch.oracle:ristretto_{n}" for n in (
             "sqrt_ratio_m1", "compress", "decompress", "eq", "elligator", "from_uniform_bytes")},
@@ -148,6 +170,7 @@ COUNTERPARTS = {
                                 "WeierstrassComb.mul_base", "edwards_byte_table",
                                 "get_weierstrass_comb")),
     }),
+    **_keyed("params/sec2_params.py", _same("params.sec2_params", ("CURVES",))),
     **_keyed("protocol/api.py", _same("protocol.api", (
         "X25519SharedSecret", "X25519SharedSecret.was_contributory", "X25519PublicKey",
         "X25519SecretKey", "X25519SecretKey.public_key", "X25519SecretKey.exchange",
@@ -161,26 +184,38 @@ COUNTERPARTS = {
         "windows_from_bytes_le": "eccoxide_tpu_torch.limbs:windows_from_bytes_le",
         "device_tables": "eccoxide_tpu_torch.protocol.ed25519:SignTables",
         "device_tables_verify": "eccoxide_tpu_torch.protocol.ed25519:VerifyTables",
+        "FQ": "eccoxide_tpu_torch.curves.curve25519:FQ",
         **_same("protocol.ed25519", (
-            "clamp_scalar_bytes", "scalar_mul_base", "scalar_mul", "sign_core", "r_point_core",
+            "FL", "ED", "clamp_scalar_bytes", "scalar_mul_base", "scalar_mul", "sign_core", "r_point_core",
             "public_key_core", "verify_core", "double_scalar_mul_base", "expand_secret_host",
             "public_keys_host", "sign_with_expanded_host", "sign_host", "verify_host")),
     }),
     **_keyed("protocol/ed25519_batch.py", _same("protocol.ed25519_batch", (
-        "rlc_verify_core", "sample_z", "verify_batch_host"))),
+        "rlc_verify_core", "sample_z", "verify_batch_host", "FL", "FQ", "ED", "Z_BYTES"))),
     **_keyed("protocol/x25519.py", _same("protocol.x25519", (
         "clamp", "x25519", "x25519_base", "was_contributory", "x25519_host", "x25519_base_host"))),
     **_keyed("protocol/x448.py", _same("protocol.x448", (
         "clamp", "x448", "x448_base", "was_contributory", "x448_host", "x448_base_host"))),
     **{f"__graft_entry__.py:{n}": f"eccoxide_tpu_torch.entry:{n}"
        for n in ("entry", "dryrun_multichip", "weak_scaling")},
+    # a script's `if __name__ == "__main__":` block: the port module's main,
+    # which its own block runs (python -m eccoxide_tpu_torch.<module>)
+    "__graft_entry__.py:__main__": "eccoxide_tpu_torch.entry:main",
+    "bench.py:__main__": "eccoxide_tpu_torch.bench:main",
+    "bench_suite.py:__main__": "eccoxide_tpu_torch.bench_suite:main",
     # the measurement scripts: every def, private ones too
     "bench.py:_setup_jax": _np("the JAX compile cache: the port compiles its kernels once "
                                "into `eccoxide_tpu_torch/_build/` (`ops/build.py`, on first "
                                "use), where the ladder's later children find them"),
     **{f"bench.py:{n}": f"eccoxide_tpu_torch.bench:{n}" for n in (
         "_chain_time", "run_verify", "run_rlc", "run_x25519", "run_fieldmul", "_child", "_try",
-        "main")},
+        "main", "CHILD_MODES")},
+    # the directory that compiled code outlives a process in: JAX's compile
+    # cache there, the port's kernel libraries here (ops/build.py)
+    "bench.py:CACHE_DIR": "eccoxide_tpu_torch.ops.build:BUILD_DIR",
+    "bench.py:TARGET_PER_CHIP": _np("a throughput target per TPU chip, the divisor of the JAX "
+                                    "record's `vs_baseline`: the records of `bench.py` leave "
+                                    "that key out and name the card they ran on"),
     **{f"bench_suite.py:{n}": f"eccoxide_tpu_torch.bench_suite:{n}" for n in (
         "_fetch", "_bench", "main")},
     # the block_until_ready sync, which the JAX suite defines and never calls
@@ -188,9 +223,22 @@ COUNTERPARTS = {
 }
 
 
+def _is_main_block(node) -> bool:
+    return isinstance(node, ast.If) and ast.unparse(node.test) == "__name__ == '__main__'"
+
+
+def _assigned(node) -> list:
+    """The names a module-level assignment binds (tuple targets unpacked)."""
+    targets = node.targets if isinstance(node, ast.Assign) else \
+        [node.target] if isinstance(node, ast.AnnAssign) else []
+    return [e.id for t in targets for e in (t.elts if isinstance(t, ast.Tuple) else [t])
+            if isinstance(e, ast.Name)]
+
+
 def _public_names():
     """(module-level names, method names) of the JAX package, as
-    "<path relative to eccoxide_tpu/>:<name>" and ":<Class>.<method>"."""
+    "<path relative to eccoxide_tpu/>:<name>" and ":<Class>.<method>"; a
+    script's ``__main__`` block as "<script>:__main__"."""
     files = [(p, p.relative_to(ROOT / "eccoxide_tpu").as_posix())
              for p in sorted((ROOT / "eccoxide_tpu").rglob("*.py"))]
     files.append((ROOT / "__graft_entry__.py", "__graft_entry__.py"))
@@ -199,6 +247,10 @@ def _public_names():
     top, methods = set(), set()
     for path, rel in files:
         for node in ast.parse(path.read_text()).body:
+            if _is_main_block(node):
+                top.add(f"{rel}:__main__")
+            top |= {f"{rel}:{n}" for n in _assigned(node)
+                    if not n.startswith("_") or n == "__version__"}
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) \
                     and (not node.name.startswith("_") or rel in scripts):
                 top.add(f"{rel}:{node.name}")
@@ -211,7 +263,9 @@ def _public_names():
 
 def test_every_public_name_has_an_entry():
     top, methods = _public_names()
-    assert (len(top), len(methods)) == (117, 122)
+    assert (len(top), len(methods)) == (179, 122)
+    assert sorted(n for n in top if n.endswith(":__main__")) == [
+        "__graft_entry__.py:__main__", "bench.py:__main__", "bench_suite.py:__main__"]
     assert set(COUNTERPARTS) == top | methods, (
         sorted(top | methods - set(COUNTERPARTS)), sorted(set(COUNTERPARTS) - top - methods))
 
@@ -228,8 +282,12 @@ def test_every_counterpart_resolves_and_every_reason_names_port_code():
             not_ported.append(name)
             continue
         module, _, attr = target.partition(":")
-        assert module.startswith("eccoxide_tpu_torch."), (name, target)
-        obj = importlib.import_module(module)
+        assert module.split(".")[0] == "eccoxide_tpu_torch", (name, target)
+        mod = obj = importlib.import_module(module)
         for part in attr.split("."):
             obj = getattr(obj, part)
-    assert len(not_ported) == 39
+        if name.endswith(":__main__"):
+            assert attr == "main" and callable(obj), (name, target)
+            tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+            assert any(_is_main_block(node) for node in tree.body), (name, target)
+    assert len(not_ported) == 42

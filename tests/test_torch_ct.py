@@ -18,6 +18,8 @@ from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import x448 as tx448
 from eccoxide_tpu_torch.protocol import x25519 as tx25519
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 aten = torch.ops.aten
 INDEXING = {aten.index, aten.gather, aten.index_select, aten.take, aten.embedding,
             aten.index_add, aten.index_add_, aten.index_put, aten.index_put_,

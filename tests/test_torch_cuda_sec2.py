@@ -17,6 +17,8 @@ from eccoxide_tpu_torch.field_sec2 import field_of
 from eccoxide_tpu_torch.limbs import windows_from_bytes_le
 from eccoxide_tpu_torch.ops import group
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 pytestmark = pytest.mark.cuda
 
 

@@ -9,6 +9,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from eccoxide_tpu.oracle import ed25519 as jorc
 from eccoxide_tpu_torch import oracle as torc
@@ -16,6 +17,8 @@ from eccoxide_tpu_torch.ops.sha512 import hasher, sha512_batch
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 from test_ed25519 import RFC_VECTORS
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 P, L = torc.P, torc.L
 CASES = ["valid", "forged S", "wrong message", "non-canonical pk",

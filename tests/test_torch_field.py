@@ -18,6 +18,8 @@ from eccoxide_tpu_torch import convert
 from eccoxide_tpu_torch import field as tf
 from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P, L = tf.P, tf.L
 FIELDS = {"FQ": (jc.FQ, tf.FQ, P), "FL": (jc.FL, tf.FL, L)}
 _jits: dict = {}

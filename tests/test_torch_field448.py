@@ -14,6 +14,8 @@ from eccoxide_tpu_torch.field448 import FQ448, P, TIGHT, WIDTHS
 from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 from eccoxide_tpu_torch.ops import group
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _operands(seed, B=24):
     """(x, y) limbs: random values, 0, 1, p - 1, p, 2^448 - 1 in strict

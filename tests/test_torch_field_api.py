@@ -20,6 +20,8 @@ from eccoxide_tpu_torch.field_sec2 import field_of
 from eccoxide_tpu_torch.limbs import limbs_to_ints
 from eccoxide_tpu_torch.ops import build, group
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 FIELDS = {"FQ": FQ, "FL": FL, "FQ448": FQ448, "l25519": field_of(L),
           **{f"{c}_n": sec2.get_curve(c).scalar for c in sec2.ALL}}
 WIDE = {**FIELDS, **{c: sec2.get_curve(c).field for c in sec2.ALL}}

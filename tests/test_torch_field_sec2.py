@@ -18,6 +18,8 @@ from eccoxide_tpu_torch.field_sec2 import MUL_SMALL_MAX, M, W, _Format
 from eccoxide_tpu_torch.limbs import limbs_to_ints
 from eccoxide_tpu_torch.ops import build, group
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _field(name):
     return sec2.get_curve(name).field

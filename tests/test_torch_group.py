@@ -21,6 +21,8 @@ from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 from eccoxide_tpu_torch.ops import group
 from eccoxide_tpu_torch.params import comb as tcomb
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P = tc.P
 JED, TED = jc.EDWARDS, tc.EDWARDS
 CURVE = ECurve(p=P, a=P - 1, d=tc.D, gx=tc.ED_GX, gy=tc.ED_GY, order=tc.L)

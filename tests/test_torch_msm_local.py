@@ -19,6 +19,8 @@ from eccoxide_tpu_torch.curves.edwards import ExtPoint
 from eccoxide_tpu_torch.parallel.msm import msm_local, msm_local_window_sums, msm_multi_prefix, _window_digits
 from eccoxide_tpu_torch.params._intcurve import ECurve
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 ED_ORACLE = ECurve(p=tc.P, a=tc.P - 1, d=tc.D, gx=tc.ED_GX, gy=tc.ED_GY, order=tc.L)
 
 

@@ -10,11 +10,15 @@ tests: see test_torch_sign.py for why the port's files stay small.)"""
 
 import random
 
+import torch
+
 from eccoxide_tpu_torch import oracle
 from eccoxide_tpu_torch.curves import sec2
 from eccoxide_tpu_torch.parallel.msm import (_window_digits, msm_local, msm_local_prefix,
                                              msm_local_window_sums, msm_local_window_sums_prefix)
 from test_torch_msm_local import _affine, _case, _cols, _sum
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 def _jax_setup_p192k1(B, seed):

@@ -15,6 +15,8 @@ from eccoxide_tpu_torch import convert
 from eccoxide_tpu_torch.field448 import A24, FQ448, P, TIGHT, WIDTHS
 from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 JF = j448.FQ
 
 

@@ -22,6 +22,8 @@ from eccoxide_tpu_torch.field import FL, FQ, L, P
 from eccoxide_tpu_torch.field448 import FQ448
 from eccoxide_tpu_torch.field448 import P as P448
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 CASES = [pytest.param(("f25519", P, "solinas", FQ), id="f25519"),
          pytest.param(("l25519", L, "mont", FL), id="l25519"),
          pytest.param(("f448", P448, "solinas", FQ448), id="f448", marks=pytest.mark.slow)]

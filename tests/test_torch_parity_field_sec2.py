@@ -18,6 +18,8 @@ from eccoxide_tpu.curves import sec2 as jsec2
 from eccoxide_tpu_torch import convert
 from eccoxide_tpu_torch.curves import sec2
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 PRIMES = ["p256r1", "p256k1", "p521r1", "p112r1", "p224r1"]
 
 

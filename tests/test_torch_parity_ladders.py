@@ -7,10 +7,14 @@ and test_torch_x448.py."""
 
 import random
 
+import torch
+
 from eccoxide_tpu.protocol import x448 as jx448
 from eccoxide_tpu.protocol import x25519 as jx25519
 from eccoxide_tpu_torch.protocol import x448 as tx448
 from eccoxide_tpu_torch.protocol import x25519 as tx25519
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 def _case(n: int, p: int, seed: int):

@@ -19,6 +19,8 @@ from eccoxide_tpu_torch.limbs import ints_to_limbs, limbs_to_ints
 from eccoxide_tpu_torch.parallel import msm as tmsm
 from test_torch_msm import _affine_ints, _case
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def test_msm_multi_prefix_matches_jax():
     """B=5 (not a power of two: identity padding to 8)."""

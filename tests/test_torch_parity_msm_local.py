@@ -7,6 +7,7 @@ marked slow (run it with ``-m slow``)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from eccoxide_tpu.curves import curve25519 as jc
 from eccoxide_tpu.curves import sec2 as jsec2
@@ -14,6 +15,8 @@ from eccoxide_tpu.curves.edwards import ExtPoint as JExt
 from eccoxide_tpu.parallel import msm as jmsm
 from eccoxide_tpu_torch.parallel.msm import msm_local
 from test_torch_msm_local import _affine, _case, _cols, _sum
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 pytestmark = pytest.mark.slow
 

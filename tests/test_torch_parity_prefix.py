@@ -12,6 +12,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 import __graft_entry__ as ge
 from eccoxide_tpu.curves import sec2 as jsec2
@@ -19,6 +20,8 @@ from eccoxide_tpu.parallel.msm import msm_local_prefix as jax_msm_local_prefix
 from eccoxide_tpu_torch import entry
 from eccoxide_tpu_torch.parallel.msm import msm_local_prefix
 from test_torch_msm_prefix import _affine, _cols, _jax_setup_p192k1
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 @pytest.mark.slow

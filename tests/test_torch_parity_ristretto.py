@@ -15,6 +15,8 @@ from eccoxide_tpu_torch.curves import ristretto255 as rz
 from eccoxide_tpu_torch.field import FQ
 from kats_rfc9496 import A2_BAD
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _canon(P):
     return FQ.canon(P.xyzt.transpose(0, 1)).transpose(0, 1)

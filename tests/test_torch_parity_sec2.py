@@ -21,6 +21,8 @@ from eccoxide_tpu_torch.curves.weierstrass import ProjPoint
 from eccoxide_tpu_torch.limbs import windows_from_bytes_le
 from eccoxide_tpu_torch.params.comb import get_weierstrass_comb
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def _points(name, seed):
     """Projective points (X, Y, Z) as ints: random [k]G scaled by random

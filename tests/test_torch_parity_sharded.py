@@ -12,6 +12,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 import __graft_entry__ as ge
@@ -21,6 +22,8 @@ from eccoxide_tpu.parallel.msm import make_sharded_msm
 from eccoxide_tpu_torch import entry
 from eccoxide_tpu_torch.parallel import world
 from test_torch_sharded import _p192k1_case, tampered_batch
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 def test_example_batch_is_the_jax_entrys():

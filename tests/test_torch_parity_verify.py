@@ -8,10 +8,13 @@ JAX test_msm.py instead of ahead of it."""
 
 import numpy as np
 import pytest
+import torch
 
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 from test_torch_ed25519 import batch  # noqa: F401  (the fixture)
+
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,8 @@ from eccoxide_tpu_torch.limbs import windows_from_bytes_le
 from eccoxide_tpu_torch.ops import group
 from kats_rfc9496 import A1_MULTIPLES, A2_BAD, A3_UNIFORM
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 
 def cols(bs):
     return torch.tensor([list(b) for b in bs], dtype=torch.int32).T.contiguous()

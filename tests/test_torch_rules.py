@@ -22,6 +22,8 @@ from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 from eccoxide_tpu_torch.protocol import x448 as tx448
 from eccoxide_tpu_torch.protocol import x25519 as tx25519
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "eccoxide_tpu_torch"
 SOURCES = sorted(p for ext in ("*.py", "*.cu", "*.cuh") for p in PKG.rglob(ext))

@@ -21,6 +21,8 @@ from eccoxide_tpu_torch.params.comb import get_weierstrass_comb
 from kats_nist import KATS
 from kats_sage_p256k1 import SAGE_P256K1
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 CRYPTOGRAPHY_CURVES = {"p192r1": ec.SECP192R1, "p224r1": ec.SECP224R1,
                        "p256k1": ec.SECP256K1, "p256r1": ec.SECP256R1,
                        "p384r1": ec.SECP384R1, "p521r1": ec.SECP521R1}

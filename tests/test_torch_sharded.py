@@ -23,6 +23,8 @@ from eccoxide_tpu_torch.parallel.msm import msm_local, msm_sharded_example
 from eccoxide_tpu_torch.protocol import ed25519 as pe
 from test_torch_msm_local import _affine, _case, _cols, _sum
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 # a world of n CPU ranks spawns n interpreters that import torch and the
 # port (about 3 s) before a rank verifies 2n signatures and runs the
 # example MSM (about 2 s more here)

@@ -25,6 +25,8 @@ from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 from test_ed25519 import RFC_VECTORS
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P, L = tc.P, tc.L
 CURVE = ECurve(p=P, a=P - 1, d=tc.D, gx=tc.ED_GX, gy=tc.ED_GY, order=L)
 ED = tc.EDWARDS

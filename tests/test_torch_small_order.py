@@ -21,6 +21,8 @@ from eccoxide_tpu_torch.curves import curve25519 as tc
 from eccoxide_tpu_torch.protocol import ed25519 as tpe
 from eccoxide_tpu_torch.protocol import ed25519_batch as tpb
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P, L = tc.P, tc.L
 IDENTITY = (1).to_bytes(32, "little")
 ORDER2 = (P - 1).to_bytes(32, "little")

@@ -16,6 +16,8 @@ from eccoxide_tpu_torch.protocol import x25519 as tx
 from test_x25519 import (ALICE_PRIV, ALICE_PUB, BOB_PRIV, BOB_PUB, IT1_K, IT1_OUT,
                          SHARED, V1_OUT, V1_SCALAR, V1_U, V2_OUT, V2_SCALAR, V2_U)
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P = 2**255 - 19
 # u of low order (0, 1, the two points of order 8, p - 1) and the
 # non-canonical encodings p, p + 1 and 2^255 + 1 (bit 255 is masked)

@@ -16,6 +16,8 @@ from eccoxide_tpu_torch.protocol import x448 as tx
 from test_x448 import (DH_A_PRIV, DH_A_PUB, DH_B_PRIV, DH_B_PUB, DH_SHARED, V1_OUT,
                        V1_SCALAR, V1_U, V2_OUT, V2_SCALAR, V2_U)
 
+torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
+
 P = 2**448 - 2**224 - 1
 # u of low order (0, 1, p - 1) and the non-canonical encodings p, p + 1
 LOW_ORDER = [0, 1, P - 1, P, P + 1]
