@@ -13,6 +13,7 @@ import ctypes
 
 import numpy as np
 
+from ..spans import span
 from .build import sha512_lib
 
 
@@ -21,15 +22,18 @@ def sha512_batch(msgs: list[bytes]) -> np.ndarray:
     the host has cores."""
     lib = sha512_lib()
     n = len(msgs)
-    blob = b"".join(msgs)
-    offsets = np.zeros(n + 1, dtype=np.uint64)
-    np.cumsum([len(m) for m in msgs], out=offsets[1:])
-    buf = np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(1, np.uint8)
-    out = np.empty((n, 64), dtype=np.uint8)
-    lib.sha512_batch(
-        buf.ctypes.data, offsets.ctypes.data, n, out.ctypes.data, 0
-    )
-    return np.ascontiguousarray(out.T).astype(np.int32)
+    with span("sha512.join"):
+        blob = b"".join(msgs)
+        offsets = np.zeros(n + 1, dtype=np.uint64)
+        np.cumsum([len(m) for m in msgs], out=offsets[1:])
+        buf = np.frombuffer(blob, dtype=np.uint8) if blob else np.zeros(1, np.uint8)
+    with span("sha512.hash"):
+        out = np.empty((n, 64), dtype=np.uint8)
+        lib.sha512_batch(
+            buf.ctypes.data, offsets.ctypes.data, n, out.ctypes.data, 0
+        )
+    with span("sha512.columns"):
+        return np.ascontiguousarray(out.T).astype(np.int32)
 
 
 def hasher() -> str:

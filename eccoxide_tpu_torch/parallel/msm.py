@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..spans import span
 from . import world
 
 
@@ -106,23 +107,24 @@ def _bucket_sums(group, wrap, ds, x, c: int):
     dev = x.device
     ident1 = group.identity((1,), dev).coords               # (k, n, 1)
 
-    levels = [x]
-    width = B2
-    for _ in range(nlev):
-        half = width // 2
-        x = group.add(wrap(x[..., :half]), wrap(x[..., half:])).coords
-        levels.append(x)
-        width = half
-    total = levels[-1]                                      # (k, n, NW, 1)
+    with span("msm.sweeps"):
+        levels = [x]
+        width = B2
+        for _ in range(nlev):
+            half = width // 2
+            x = group.add(wrap(x[..., :half]), wrap(x[..., half:])).coords
+            levels.append(x)
+            width = half
+        total = levels[-1]                                  # (k, n, NW, 1)
 
-    D = ident1[..., None].expand(*ident1.shape[:2], NW, 1).contiguous()
-    for lev in range(nlev - 1, -1, -1):
-        half = B2 >> (lev + 1)
-        left = levels[lev][..., :half]
-        levels[lev] = None
-        grown = group.add(wrap(D), wrap(left)).coords
-        D = torch.cat([D, grown], dim=-1)
-    del levels
+        D = ident1[..., None].expand(*ident1.shape[:2], NW, 1).contiguous()
+        for lev in range(nlev - 1, -1, -1):
+            half = B2 >> (lev + 1)
+            left = levels[lev][..., :half]
+            levels[lev] = None
+            grown = group.add(wrap(D), wrap(left)).coords
+            D = torch.cat([D, grown], dim=-1)
+        del levels
 
     j = torch.arange(m - 1, device=dev).expand(NW, m - 1).contiguous()
     t = torch.searchsorted(ds, j, right=True)               # (NW, m-1) in [0, B]
@@ -274,27 +276,28 @@ def msm_multi_prefix(group, terms, c: int = 12):
     ``group``'s, so on CUDA tensors each one on edwards25519 is a kernel
     launch.
     """
-    wrap = type(terms[0][0])
-    dev = terms[0][0].coords.device
-    ds_all, pts_all, nw_list = [], [], []
-    for pts, scalar_bytes in terms:
-        nw = -(-scalar_bytes.shape[0] * 8 // c)
-        nw_list.append(nw)
-        ds, g = _sorted_windows(group, pts, _window_digits(scalar_bytes, c, nw))
-        ds_all.append(ds)
-        pts_all.append(g)
-    ds = torch.cat(ds_all).contiguous()                     # (NW, B)
-    x = torch.cat(pts_all, dim=2)                           # (k, n, NW, B2)
-    del pts_all
-    ws = _bucket_sums(group, wrap, ds, x, c)                # (k, n, NW, 1)
+    with span("msm.multi_prefix"):
+        wrap = type(terms[0][0])
+        dev = terms[0][0].coords.device
+        ds_all, pts_all, nw_list = [], [], []
+        for pts, scalar_bytes in terms:
+            nw = -(-scalar_bytes.shape[0] * 8 // c)
+            nw_list.append(nw)
+            ds, g = _sorted_windows(group, pts, _window_digits(scalar_bytes, c, nw))
+            ds_all.append(ds)
+            pts_all.append(g)
+        ds = torch.cat(ds_all).contiguous()                 # (NW, B)
+        x = torch.cat(pts_all, dim=2)                       # (k, n, NW, B2)
+        del pts_all
+        ws = _bucket_sums(group, wrap, ds, x, c)            # (k, n, NW, 1)
 
-    max_nw = max(nw_list)
-    per_w = None
-    off = 0
-    for nw in nw_list:
-        cur = ws[:, :, off:off + nw, 0]
-        if nw < max_nw:
-            cur = torch.cat([cur, group.identity((max_nw - nw,), dev).coords], -1)
-        per_w = wrap(cur) if per_w is None else group.add(per_w, wrap(cur))
-        off += nw
-    return _horner_fold(group, per_w, max_nw, c)
+        max_nw = max(nw_list)
+        per_w = None
+        off = 0
+        for nw in nw_list:
+            cur = ws[:, :, off:off + nw, 0]
+            if nw < max_nw:
+                cur = torch.cat([cur, group.identity((max_nw - nw,), dev).coords], -1)
+            per_w = wrap(cur) if per_w is None else group.add(per_w, wrap(cur))
+            off += nw
+        return _horner_fold(group, per_w, max_nw, c)

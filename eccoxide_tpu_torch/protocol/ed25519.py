@@ -22,6 +22,7 @@ from ..device import resolve_device
 from ..limbs import windows_from_bytes_le
 from ..ops.sha512 import sha512_batch
 from ..params.comb import comb_tables, edwards_byte_table, edwards_comb, mul_base
+from ..spans import span
 
 
 class VerifyTables:
@@ -120,10 +121,11 @@ def public_key_core(a_clamped_bytes, tables: SignTables):
 def verify_core(pk_bytes, r_bytes, s_bytes, k_wide_bytes, tables: VerifyTables):
     """(B,) bool: [S]B - [k]A == R, with A and R decodable and canonical and
     S < l. k_wide is H(R || A || M) as (64, B) bytes."""
-    A, ok_a = ED.decompress(pk_bytes)
-    R, ok_r = ED.decompress(r_bytes)
-    _, ok_s = FL.from_bytes_le(s_bytes)        # canonical-S rejection only
-    k_bytes = FL.reduce_wide_bytes_le(k_wide_bytes)
+    with span("ed25519.decode"):
+        A, ok_a = ED.decompress(pk_bytes)
+        R, ok_r = ED.decompress(r_bytes)
+        _, ok_s = FL.from_bytes_le(s_bytes)        # canonical-S rejection only
+        k_bytes = FL.reduce_wide_bytes_le(k_wide_bytes)
     lhs = double_scalar_mul_base(s_bytes, ED.neg(A), k_bytes, tables)
     return ok_a & ok_r & ok_s & ED.eq(lhs, R)
 
@@ -148,23 +150,41 @@ def rows(by: torch.Tensor) -> list[bytes]:
 
 
 def host_inputs(pks, msgs, sigs, device):
-    """Byte columns (pk, R, S, H(R || A || M)) on ``device``."""
+    """Byte columns (pk, R, S, H(R || A || M)) on ``device``: every column
+    packed on the host, then the four copied. The per-lane strings are
+    released before it returns, inside its span."""
     if not len(pks) == len(msgs) == len(sigs):
         raise ValueError("pks, msgs and sigs differ in length")
-    rs = [s[:32] for s in sigs]
-    ss = [s[32:] for s in sigs]
-    k_wide = sha512_batch([r + pk + m for r, pk, m in zip(rs, pks, msgs)])
-    return (cols(pks, 32, device), cols(rs, 32, device), cols(ss, 32, device),
-            torch.from_numpy(k_wide).to(device))
+    with span("ed25519.host_inputs"):
+        with span("ed25519.concat"):
+            rs = [s[:32] for s in sigs]
+            ss = [s[32:] for s in sigs]
+            ram = [r + pk + m for r, pk, m in zip(rs, pks, msgs)]
+        k_wide = sha512_batch(ram)
+        with span("ed25519.columns"):
+            host = (cols(pks, 32, "cpu"), cols(rs, 32, "cpu"), cols(ss, 32, "cpu"),
+                    torch.from_numpy(k_wide))
+        out = to_device(host, device)
+        with span("ed25519.release"):
+            del rs, ss, ram, k_wide, host
+        return out
+
+
+def to_device(host, device) -> tuple:
+    """The host tensors ``host`` on ``device``, their bytes counted."""
+    with span("ed25519.copy") as s:
+        s.set(bytes=sum(t.nbytes for t in host))
+        return tuple(t.to(device) for t in host)
 
 
 def verify_host(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],
                 device="cuda", tables: VerifyTables | None = None) -> list[bool]:
     """Verify B signatures one by one (Straus) on ``device``."""
-    dev = resolve_device(device)
-    tables = tables if tables is not None else VerifyTables(dev)
-    ok = verify_core(*host_inputs(pks, msgs, sigs, dev), tables)
-    return ok.cpu().tolist()
+    with span("ed25519.verify_host"):
+        dev = resolve_device(device)
+        tables = tables if tables is not None else VerifyTables(dev)
+        ok = verify_core(*host_inputs(pks, msgs, sigs, dev), tables)
+        return ok.cpu().tolist()
 
 
 def expand_secret_host(sks: list[bytes]):

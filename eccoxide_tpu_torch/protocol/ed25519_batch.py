@@ -23,6 +23,7 @@ from ..curves.curve25519 import EDWARDS as ED
 from ..curves.curve25519 import FL, FQ
 from ..curves.edwards import ExtPoint
 from ..parallel.msm import _tree_reduce_points_ops, msm_multi_prefix
+from ..spans import span
 from . import ed25519 as base
 
 Z_BYTES = 16  # 128-bit randomizers
@@ -58,12 +59,13 @@ def rlc_verify_core(pk_bytes, r_bytes, s_bytes, k_wide_bytes, z_bytes,
                     tables: base.VerifyTables, msm_c: int = 8):
     """0-d bool: every encoding decodes and is canonical AND the RLC
     equation holds. z: (Z_BYTES, B) nonzero random byte columns."""
-    A, ok_a = ED.decompress(pk_bytes)
-    R, ok_r = ED.decompress(r_bytes)
-    s, ok_s = FL.from_bytes_le(s_bytes)
-    k = FL.from_wide_bytes_le(k_wide_bytes)
-    zpad = torch.cat([z_bytes, torch.zeros_like(z_bytes[:FL.n_bytes - Z_BYTES])])
-    z, _ = FL.from_bytes_le(zpad)          # < 2^128 < l: always canonical
+    with span("ed25519_batch.decode"):
+        A, ok_a = ED.decompress(pk_bytes)
+        R, ok_r = ED.decompress(r_bytes)
+        s, ok_s = FL.from_bytes_le(s_bytes)
+        k = FL.from_wide_bytes_le(k_wide_bytes)
+        zpad = torch.cat([z_bytes, torch.zeros_like(z_bytes[:FL.n_bytes - Z_BYTES])])
+        z, _ = FL.from_bytes_le(zpad)          # < 2^128 < l: always canonical
 
     zk_bytes = FL.to_bytes_le(FL.mul(z, k))
     c_bytes = FL.to_bytes_le(_fold_sum_scalar(FL.mul(z, s)))
@@ -94,15 +96,17 @@ def verify_batch_host(pks: list[bytes], msgs: list[bytes], sigs: list[bytes],
     """Batch verify on ``device``; on rejection, the per-signature verifier
     on the same device says which signatures failed. An empty batch is
     ``[]``, as ``verify_host`` gives, with no device work."""
-    dev = base.resolve_device(device)
-    B = len(pks)
-    if B == 0:
-        return []
-    tables = tables if tables is not None else base.VerifyTables(dev)
-    pkc, rc, sc, kwc = base.host_inputs(pks, msgs, sigs, dev)
-    z = torch.from_numpy(sample_z(B, rng)).to(dev)
-    # 2^c buckets pay off once each window has ~2^c points to amortize them
-    msm_c = 8 if B >= 4096 else 4
-    if bool(rlc_verify_core(pkc, rc, sc, kwc, z, tables, msm_c=msm_c)):
-        return [True] * B
-    return base.verify_core(pkc, rc, sc, kwc, tables).cpu().tolist()
+    with span("ed25519_batch.verify_batch_host"):
+        dev = base.resolve_device(device)
+        B = len(pks)
+        if B == 0:
+            return []
+        tables = tables if tables is not None else base.VerifyTables(dev)
+        pkc, rc, sc, kwc = base.host_inputs(pks, msgs, sigs, dev)
+        z, = base.to_device((torch.from_numpy(sample_z(B, rng)),), dev)
+        # 2^c buckets pay off once each window has ~2^c points to amortize them
+        msm_c = 8 if B >= 4096 else 4
+        if bool(rlc_verify_core(pkc, rc, sc, kwc, z, tables, msm_c=msm_c)):
+            return [True] * B
+        with span("ed25519_batch.fallback"):
+            return base.verify_core(pkc, rc, sc, kwc, tables).cpu().tolist()
