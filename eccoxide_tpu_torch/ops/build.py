@@ -9,8 +9,9 @@
   one instance of ``csrc/pow_sec2.cuh`` per prime of that count in
   ``POW_SEC2_INSTANCES`` (the SEC2 coordinate primes, the SEC2 group
   orders and l), its fold matrix as constants.
-- The host batch SHA-512 (``native/sha512.cpp`` at the repository root) is
-  compiled by ``g++``.
+- The host batch SHA-512 (``native/sha512.cpp`` at the repository root) and
+  the verifiers' host columns (``csrc/ed25519_inputs.cpp``, which includes
+  it and the interpreter's ``Python.h``) are compiled by ``g++``.
 
 Outputs (and the generated sources, under ``gen/``) go to
 ``eccoxide_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
@@ -26,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -65,6 +67,8 @@ NVCC_FLAGS = [
 SHA512_SOURCE = PKG_DIR.parent / "native" / "sha512.cpp"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 GXX_LIBS = ["-lpthread", "-ldl"]
+INPUTS_SOURCE = CSRC / "ed25519_inputs.cpp"
+INPUTS_INCLUDES = ["-I", sysconfig.get_paths()["include"], "-I", str(SHA512_SOURCE.parent)]
 
 
 class BuildError(RuntimeError):
@@ -93,7 +97,7 @@ def _nvcc() -> str:
 def _gxx() -> str:
     found = shutil.which("g++")
     if not found:
-        raise BuildError("g++ not found: the SHA-512 library cannot be built")
+        raise BuildError("g++ not found: the host libraries cannot be built")
     return found
 
 
@@ -190,6 +194,15 @@ def _sha512_job() -> _Job:
         [SHA512_SOURCE], GXX_FLAGS, GXX_LIBS)
 
 
+def _inputs_job() -> _Job:
+    gxx = _gxx()
+    flags = GXX_FLAGS + INPUTS_INCLUDES
+    return _Job(
+        "ed25519_inputs",
+        lambda out: [gxx, *flags, "-o", out, str(INPUTS_SOURCE), *GXX_LIBS],
+        [INPUTS_SOURCE, SHA512_SOURCE], flags, GXX_LIBS)
+
+
 _libs: dict = {}
 
 
@@ -224,23 +237,36 @@ def _bind_sha512(lib):
     lib.sha512_batch.restype = None
 
 
-def _load(name: str, built: Built, bind):
-    lib = ctypes.CDLL(str(built.path))
+def _bind_inputs(lib):
+    lib.ed25519_inputs_walk.argtypes = [ctypes.py_object] * 3
+    lib.ed25519_inputs_walk.restype = ctypes.c_void_p
+    lib.ed25519_inputs_hash.argtypes = [ctypes.c_void_p] * 6
+    lib.ed25519_inputs_hash.restype = ctypes.c_int
+    lib.ed25519_inputs_free.argtypes = [ctypes.c_void_p]
+    lib.ed25519_inputs_free.restype = None
+
+
+def _load(name: str, built: Built, bind, dll=ctypes.CDLL):
+    lib = dll(str(built.path))
     bind(lib)
     _libs[name] = lib
     return lib
 
 
 def build_all() -> dict:
-    """Build every kernel library and the SHA-512 library, all compilers
-    running at once; load them. Returns {name: Built}, keyed by the names
-    of ``KERNEL_SOURCES`` and "sha512"."""
+    """Build every kernel library, the SHA-512 library and the host columns'
+    library, all compilers running at once; load them. Returns {name:
+    Built}, keyed by the names of ``KERNEL_SOURCES``, "sha512" and
+    "ed25519_inputs"."""
     jobs = {name: _kernel_job(name).start() for name in KERNEL_SOURCES}
     jobs["sha512"] = _sha512_job().start()
+    jobs["ed25519_inputs"] = _inputs_job().start()
+    host = {"sha512": (_bind_sha512, ctypes.CDLL),
+            "ed25519_inputs": (_bind_inputs, ctypes.PyDLL)}
     out = {}
     for name, job in jobs.items():
         built = job.finish()
-        _load(name, built, _bind_sha512 if name == "sha512" else _binder(name))
+        _load(name, built, *host.get(name, (_binder(name),)))
         out[name] = built
     return out
 
@@ -258,3 +284,11 @@ def sha512_lib():
     if "sha512" not in _libs:
         _load("sha512", _sha512_job().start().finish(), _bind_sha512)
     return _libs["sha512"]
+
+
+def inputs_lib():
+    """The loaded host columns' library (built on first use), its calls
+    holding the interpreter lock (``ctypes.PyDLL``)."""
+    if "ed25519_inputs" not in _libs:
+        _load("ed25519_inputs", _inputs_job().start().finish(), _bind_inputs, ctypes.PyDLL)
+    return _libs["ed25519_inputs"]

@@ -20,7 +20,7 @@ from ..curves.curve25519 import FL
 from ..curves.edwards import ExtPoint
 from ..device import resolve_device
 from ..limbs import windows_from_bytes_le
-from ..ops.sha512 import sha512_batch
+from ..ops.sha512 import sha512_batch, verify_columns
 from ..params.comb import comb_tables, edwards_byte_table, edwards_comb, mul_base
 from ..spans import span
 
@@ -150,24 +150,11 @@ def rows(by: torch.Tensor) -> list[bytes]:
 
 
 def host_inputs(pks, msgs, sigs, device):
-    """Byte columns (pk, R, S, H(R || A || M)) on ``device``: every column
-    packed on the host, then the four copied. The per-lane strings are
-    released before it returns, inside its span."""
-    if not len(pks) == len(msgs) == len(sigs):
-        raise ValueError("pks, msgs and sigs differ in length")
+    """Byte columns (pk, R, S, H(R || A || M)) on ``device``: the four built
+    on the host in one native pass (``ops/sha512.py`` ``verify_columns``),
+    then copied."""
     with span("ed25519.host_inputs"):
-        with span("ed25519.concat"):
-            rs = [s[:32] for s in sigs]
-            ss = [s[32:] for s in sigs]
-            ram = [r + pk + m for r, pk, m in zip(rs, pks, msgs)]
-        k_wide = sha512_batch(ram)
-        with span("ed25519.columns"):
-            host = (cols(pks, 32, "cpu"), cols(rs, 32, "cpu"), cols(ss, 32, "cpu"),
-                    torch.from_numpy(k_wide))
-        out = to_device(host, device)
-        with span("ed25519.release"):
-            del rs, ss, ram, k_wide, host
-        return out
+        return to_device(verify_columns(pks, msgs, sigs), device)
 
 
 def to_device(host, device) -> tuple:

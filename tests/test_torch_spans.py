@@ -4,6 +4,8 @@ records nothing; on, each entry call records its spans once, nested under
 the call's root, with the bytes copied to the device, and the verdicts do
 not change; the records lie on torch.profiler's clock after the offset."""
 
+import os
+
 import pytest
 import torch
 
@@ -20,8 +22,7 @@ SIGS = [oracle.sign(sk, m) for sk, m in zip(SKS, MSGS)]
 FORGED = MSGS[:2] + [b"forged"] + MSGS[3:]          # lane 2 fails
 WANT = [True, True, False, True]
 
-HOST = ("ed25519.concat", "sha512.join", "sha512.hash", "sha512.columns",
-        "ed25519.columns", "ed25519.copy", "ed25519.release")
+HOST = ("ed25519.concat", "sha512.hash", "ed25519.copy")
 
 
 @pytest.fixture
@@ -63,6 +64,16 @@ def test_off_records_nothing_and_on_records_each_span_once(recorder):
     assert all(r.root == root and r.start_ns <= r.end_ns for r in recs)
     copy = next(r for r in recs if r.name == "ed25519.copy")
     assert copy.fields == {"bytes": 160 * 4 * B}
+    # the native pass: every lane hashed, R || A || M its bytes; one thread
+    # below 512 lanes
+    hashed = next(r for r in recs if r.name == "sha512.hash")
+    assert hashed.fields == {"lanes": B, "bytes": sum(64 + len(m) for m in FORGED),
+                             "threads": 1}
+    # from 512 lanes on, the pass splits the lanes across the host's cores
+    ed25519.host_inputs(PKS * 128, FORGED * 128, SIGS * 128, "cpu")
+    hashed = next(r for r in spans.drain() if r.name == "sha512.hash")
+    assert hashed.fields["lanes"] == 512
+    assert hashed.fields["threads"] == min(64, os.cpu_count())
     # a child lies inside its parent
     by_name = {r.name: r for r in recs}
     for r in recs:
