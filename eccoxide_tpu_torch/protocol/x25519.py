@@ -1,6 +1,8 @@
 """X25519 Diffie-Hellman (RFC 7748), batched. Counterpart of the JAX
 package's ``protocol/x25519.py``: every device function takes (32, B)
-int32 LE byte columns; the host functions take and return single values.
+int32 LE byte columns; the host functions take and return single values,
+but for ``exchange_host``, a server's batched key exchange, which takes and
+returns lists.
 """
 
 from __future__ import annotations
@@ -10,7 +12,8 @@ import torch
 
 from ..curves import curve25519 as c255
 from ..curves.montgomery import ladder
-from .ed25519 import resolve_device
+from ..spans import span
+from .ed25519 import cols, resolve_device
 
 
 def clamp(scalar_bytes: torch.Tensor) -> torch.Tensor:
@@ -63,3 +66,47 @@ def x25519_host(scalar: bytes, u: bytes, device="cuda") -> bytes:
 def x25519_base_host(scalar: bytes, device="cuda") -> bytes:
     dev = resolve_device(device)
     return bytes(x25519_base(_col(scalar, 32, dev))[:, 0].cpu().tolist())
+
+
+def exchange_core(scalar_cols: torch.Tensor, u_cols: torch.Tensor):
+    """The server's side of B X25519 key exchanges from (32, B) scalar and
+    peer-u byte columns: (shares, secrets, contributory), the key shares
+    [k]9 and the shared secrets [k]u as (32, B) byte columns and the (B,)
+    mask of secrets that are not all zero. One ladder call over 2B lanes,
+    the B u's of 9 beside the B peer u's under the same clamped scalar
+    bits: the ladder's launches do not grow with its width."""
+    b = scalar_cols.shape[1]
+    k_bits = _bits_from_bytes(clamp(scalar_cols), 255)
+    u = torch.cat([c255.FQ.const(9, (b,), u_cols.device), c255.decode_u(u_cols)], 1)
+    out = c255.FQ.to_bytes_le(ladder(c255.MONT, u, torch.cat([k_bits, k_bits], 1)))
+    shares, secrets = out[:, :b], out[:, b:]
+    return shares, secrets, was_contributory(secrets)
+
+
+def exchange_host(scalars, peer_us, device="cuda"):
+    """A TLS 1.3 server's X25519 key exchange (RFC 8446 4.2.8 and 7.4.2)
+    for B handshakes: ``scalars`` the server's ephemeral secrets, ``peer_us``
+    the clients' key shares, each a list of 32-byte values. Returns (shares,
+    secrets): shares[i] = X25519(k_i, 9), the server's key share, and
+    secrets[i] = X25519(k_i, u_i), or None where it is all zero (RFC 7748
+    6.1), which refuses that handshake. Lists of unequal length and values
+    that are not 32 bytes raise ValueError before any device work."""
+    with span("x25519.exchange_host"):
+        dev = resolve_device(device)
+        with span("x25519.inputs") as s:
+            if len(scalars) != len(peer_us):
+                raise ValueError(f"{len(scalars)} scalars but {len(peer_us)} peer u's")
+            host = torch.cat([cols(scalars, 32, "cpu"), cols(peer_us, 32, "cpu")])
+            b = host.shape[1]
+            if b == 0:
+                return [], []
+            s.set(lanes=b, bytes=host.nbytes)
+            both = host.to(dev)
+        shares, secrets, ok = exchange_core(both[:32], both[32:])
+        with span("x25519.outputs") as s:
+            out = torch.cat([shares, secrets, ok[None].to(shares.dtype)])
+            out = out.to(torch.uint8).cpu().numpy()              # (65, B)
+            blob, ok = np.ascontiguousarray(out[:64].T).tobytes(), out[64].tolist()
+            s.set(refused=b - sum(ok))
+            return ([blob[i:i + 32] for i in range(0, 64 * b, 64)],
+                    [blob[i + 32:i + 64] if k else None for i, k in zip(range(0, 64 * b, 64), ok)])
