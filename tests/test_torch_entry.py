@@ -19,6 +19,7 @@ import torch
 
 from eccoxide_tpu_torch import entry
 from eccoxide_tpu_torch.protocol import ed25519 as pe
+from world_limit import world_limited
 
 torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
@@ -34,6 +35,7 @@ def test_entry_verifies_its_example_batch():
     assert fn(*args).tolist() == [True] * 8
 
 
+@world_limited
 def test_weak_scaling_in_a_gloo_world_of_two(monkeypatch):
     """JAX's keys and rounding; on the card, more ranks than cards raise
     before any process starts (NCCL refuses two ranks on one card)."""

@@ -22,6 +22,7 @@ from eccoxide_tpu_torch.parallel.batch_verify import make_sharded_verify, shard_
 from eccoxide_tpu_torch.parallel.msm import msm_local, msm_sharded_example
 from eccoxide_tpu_torch.protocol import ed25519 as pe
 from test_torch_msm_local import _affine, _case, _cols, _sum
+from world_limit import world_limited
 
 torch.set_num_threads(1)  # the test workers share the host's cores: one intra-op thread each
 
@@ -40,6 +41,7 @@ def tampered_batch():
     return pk, r, s, kw
 
 
+@world_limited
 def test_sharded_verify_counts_over_every_rank(monkeypatch, tmp_path):
     pk, r, s, kw = tampered_batch()
     unsharded = pe.verify_core(*(torch.from_numpy(a) for a in (pk, r, s, kw)), pe.VerifyTables("cpu"))
@@ -86,6 +88,7 @@ def _p192k1_case():
     return grp, o, pts, aff, ks, grp.scalar.n_bytes
 
 
+@world_limited
 def test_sharded_msm_equal_on_every_rank():
     """p192k1 in a world of 4 with c = 4; edwards25519 in a world of 2 with
     c = 8, zero scalars and a repeated point (lanes 0, 5 and 2, 3), and
@@ -105,6 +108,7 @@ def test_sharded_msm_equal_on_every_rank():
         assert tuple(report["affine"]) == want, curve
 
 
+@world_limited
 def test_dryrun_multichip_on_cpu_ranks(monkeypatch):
     """The dry run in worlds of 1, 2 and 4, each under a wall budget: every
     rank counts the 2n signatures, and the example MSM equals the oracle's.
