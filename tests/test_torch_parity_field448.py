@@ -1,8 +1,8 @@
 """The port's FQ448 against the JAX package's curve448.FQ (38 limbs of 12
 bits there), carried across by convert.py: ring ops on random values and
 on the port's largest TIGHT limbs, pow_const(p - 2) and the bytes. The JAX
-graphs compile in seconds each; the file keeps to few tests (see
-test_torch_parity_verify.py)."""
+graphs compile in seconds each; the root conftest.py's scheduler sends
+this file out after the JAX package's slow units."""
 
 import random
 

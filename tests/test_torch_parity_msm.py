@@ -1,9 +1,7 @@
 """The port's msm_multi_prefix against the JAX package's (ops=None) on the
 same points and scalars (test_torch_msm.py's case). The JAX graph takes
-about a minute to compile on the CPU, so it sits in a file of few tests:
-pytest-xdist's --dist loadfile hands out the files with the most tests
-first, and this one runs beside the slow JAX test_msm.py instead of ahead
-of it."""
+about a minute to compile on the CPU; the root conftest.py's scheduler
+sends this file out after the JAX package's slow units."""
 
 import jax
 import numpy as np

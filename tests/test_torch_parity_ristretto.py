@@ -2,8 +2,9 @@
 numpy-seeded inputs, one JAX graph each: ``decompress`` (bytes equal after
 ``compress``, validity masks equal, the decompressed points equal through
 convert.py) and ``compress`` after ``from_uniform_bytes`` (bytes equal).
-The JAX graphs take tens of seconds to compile on the CPU, so they sit in
-a file of few tests (ROADMAP, "Tier-1 wall time")."""
+The JAX graphs take tens of seconds to compile on the CPU; the root
+conftest.py's scheduler sends this file out after the JAX package's slow
+units."""
 
 import jax
 import numpy as np

@@ -1,10 +1,9 @@
 """The port's verifiers against the JAX package's own verify_host and
 verify_batch_host on the same batch (test_torch_ed25519.py's), with the
 same numpy generator for z. The JAX graphs take about a minute (Straus)
-and nearly four minutes (RLC, under -m slow) to compile on the CPU, so
-they sit in a file of few tests: pytest-xdist's --dist loadfile hands out
-the files with the most tests first, and this one runs beside the slow
-JAX test_msm.py instead of ahead of it."""
+and nearly four minutes (RLC, under -m slow) to compile on the CPU; the
+root conftest.py's scheduler sends this file out after the JAX package's
+slow units."""
 
 import numpy as np
 import pytest

@@ -116,9 +116,9 @@ def test_no_kernel_for_other_devices_and_no_build_without_nvcc():
 
 def test_add_mixed_checks_its_operands():
     """ed_add_mixed takes an int32 (3, 10, *batch) q of p's batch, on p's
-    device, and raises on anything else before any launch. (One test, not
-    four: a larger count moves this file up xdist's loadfile queue, which
-    is sorted by test count, and starts the slow JAX MSM file later.)"""
+    device, and raises on anything else before any launch. (The test count
+    of this file does not move the JAX package's slow units: the root
+    conftest.py sends those out first.)"""
     group.reset_launches()
     p = tpe.ED.identity((3,), "cpu").xyzt
     for q in (p, p[[0, 1, 3], :, :2], p[[0, 1, 3]].to(torch.int64), p[[0, 1, 3]].to("meta")):

@@ -2,9 +2,8 @@
 public_keys_host and sign_host byte for byte against `cryptography` and
 the RFC 8032 vectors; comb mul_base, CT scalar_mul, compress, to_affine and
 on_curve against Python ints; the key types of protocol/api.py round
-trip. (Three tests: pytest-xdist's --dist loadfile hands out the files
-with the most tests first, and a file of at most three runs beside the
-slow JAX test_msm.py instead of ahead of it.)"""
+trip. The root conftest.py's scheduler sends this file out after the JAX
+package's slow units, whatever its test count."""
 
 import random
 
